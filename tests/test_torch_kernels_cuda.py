@@ -1,0 +1,95 @@
+"""CUDA kernel tests of the port: they need an NVIDIA GPU with ``nvcc``
+(marker ``cuda``) and skip elsewhere. This file imports no JAX, so it also
+runs on a host without it:
+
+    python -m pytest tests/test_torch_kernels_cuda.py -m cuda -q
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from wsovod_torch.ops import roi_pool as port
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda")
+
+
+def _inputs(device, dtype, b=2, h=11, w=17, c=64, n=300, seed=0):
+    g = torch.Generator().manual_seed(seed)
+    feat = torch.randn(b, h, w, c, generator=g).to(dtype)
+    img_w, img_h = w * 8.0, h * 8.0
+    xy = torch.rand(b, n, 2, generator=g) * img_w - 20
+    wh = torch.rand(b, n, 2, generator=g) * img_w * 0.7
+    rois = torch.cat([xy, xy + wh], -1)
+    rois[:, 0] = torch.tensor([img_w - 10, img_h - 30, img_w + 40, img_h + 50])
+    rois[:, 1] = torch.tensor([50.0, 40.0, 20.0, 10.0])  # degenerate
+    rois[:, 2] = torch.tensor([4.0, 12.0, 100.0, 60.0])  # .5 boundaries
+    valid = torch.rand(b, n, generator=g) > 0.1
+    gate = (torch.rand(b, n, generator=g) + 0.5) * valid
+    rois = torch.where(valid[..., None], rois, 0.0)
+    return feat.to(device), rois.to(device), gate.to(device)
+
+
+def test_kernel_equals_plain(cuda):
+    """Bit-equal to the plain version in both dtypes and on an inner
+    channel chunk, one launch counted per call; float16 and non-contiguous
+    features are refused."""
+    for dtype in (torch.bfloat16, torch.float32):
+        feat, rois, gate = _inputs(cuda, dtype)
+        for c_base, c_take in ((0, 64), (16, 32)):
+            before = port.LAUNCHES
+            got = port.roi_pool_gated(feat, rois, gate, c_base, c_take, 7, 0.125)
+            torch.cuda.synchronize()
+            assert port.LAUNCHES == before + 1
+            want = port.roi_pool_gated_plain(feat, rois, gate, c_base, c_take, 7, 0.125)
+            assert torch.equal(got, want), (dtype, c_base, c_take)
+
+    feat, rois, gate = _inputs(cuda, torch.float16)
+    with pytest.raises(TypeError):
+        port.roi_pool_gated(feat, rois, gate, 0, 64)
+    feat, rois, gate = _inputs(cuda, torch.bfloat16)
+    with pytest.raises(ValueError):
+        port.roi_pool_gated(feat.transpose(1, 2), rois, gate, 0, 64)
+
+
+def test_model_forward_on_cuda(cuda):
+    """A narrow model end to end on the card: the pooler goes through the
+    kernel once per channel chunk, detections are finite."""
+    from wsovod_torch import get_cfg
+    from wsovod_torch.models import build_model
+
+    cfg = get_cfg()
+    cfg.MODEL.RESNETS.DEPTH = 18
+    cfg.MODEL.RESNETS.RES2_OUT_CHANNELS = 64
+    cfg.MODEL.ROI_HEADS.NUM_CLASSES = 5
+    cfg.MODEL.ROI_BOX_HEAD.POOLER_TYPE = "ROIPool"
+    cfg.MODEL.ROI_BOX_HEAD.POOLER_RESOLUTION = 7
+    cfg.MODEL.ROI_BOX_HEAD.DAN_DIM = [64, 64]
+    cfg.MODEL.ROI_BOX_HEAD.OPEN_VOCABULARY.WEIGHT_DIM = 16
+    cfg.MODEL.ROI_BOX_HEAD.OPEN_VOCABULARY.DATA_AWARE = True
+    cfg.WSOVOD.INSTANCE_REFINEMENT.REFINE_NUM = 1
+    cfg.WSOVOD.INSTANCE_REFINEMENT.REFINE_REG = [True]
+    model = build_model(cfg, device=cuda, seed=0)
+    rng = np.random.RandomState(0)
+    xy = rng.uniform(0, 60, (2, 20, 2))
+    batch = {
+        "images": torch.from_numpy(rng.uniform(0, 255, (2, 128, 128, 3)).astype(np.float32)).to(cuda),
+        "image_sizes": torch.tensor([[128, 128], [120, 100]], dtype=torch.int32, device=cuda),
+        "sam_boxes": torch.from_numpy(np.concatenate([xy, xy + 40], -1).astype(np.float32)).to(cuda),
+        "sam_scores": torch.full((2, 20), 0.7, device=cuda),
+        "sam_valid": torch.ones(2, 20, dtype=torch.bool, device=cuda),
+    }
+    emb = torch.randn(5, 16, generator=torch.Generator().manual_seed(1)).to(cuda)
+    before = port.LAUNCHES
+    with torch.inference_mode():
+        det, probs, boxes = model(batch, embeddings=emb)
+    torch.cuda.synchronize()
+    assert port.LAUNCHES == before + 1  # R18 res5 has 512 channels: one chunk
+    assert torch.isfinite(det.scores[det.valid]).all() and det.valid.any()

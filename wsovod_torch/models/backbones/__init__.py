@@ -1,0 +1,7 @@
+from .resnet_wsl import WSRResNet, build_wsl_resnet_backbone
+
+# The WSR ResNet is the one ported backbone; config.check_supported refuses
+# the others by name before a model is built.
+build_backbone = build_wsl_resnet_backbone
+
+__all__ = ["WSRResNet", "build_wsl_resnet_backbone", "build_backbone"]

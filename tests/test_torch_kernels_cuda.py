@@ -38,9 +38,11 @@ def _inputs(device, dtype, b=2, h=11, w=17, c=64, n=300, seed=0):
 
 
 def test_kernel_equals_plain(cuda):
-    """Bit-equal to the plain version in both dtypes and on an inner
-    channel chunk, one launch counted per call; float16 and non-contiguous
-    features are refused."""
+    """Both kernels bit-equal to their plain versions in both dtypes and on
+    an inner channel chunk, one launch counted per call; float16 and
+    non-contiguous features are refused. The loop kernel at a medium size
+    (3 branch copies, 600 ROIs per image, routed), rows 1 and 3."""
+    _check_loop_kernel(cuda)
     for dtype in (torch.bfloat16, torch.float32):
         feat, rois, gate = _inputs(cuda, dtype)
         for c_base, c_take in ((0, 64), (16, 32)):
@@ -59,9 +61,29 @@ def test_kernel_equals_plain(cuda):
         port.roi_pool_gated(feat.transpose(1, 2), rois, gate, 0, 64)
 
 
+def _check_loop_kernel(cuda):
+    b, n_br = 2, 3
+    g = torch.Generator().manual_seed(1)
+    for dtype in (torch.bfloat16, torch.float32):
+        feat, rois, gate = _inputs(cuda, dtype, b=b, h=43, w=66, c=256, n=600)
+        feat = torch.cat([feat, feat.flip(1), feat * -0.5], 0).contiguous()  # three copies
+        branch = torch.randint(0, n_br, (b, 600), generator=g)
+        src = (branch * b + torch.arange(b)[:, None]).to(torch.int32).to(cuda)
+        for c_base, c_take, rows in ((0, 256, 3), (64, 128, 1)):
+            before = port.LOOP_LAUNCHES
+            got = port.roi_loop_pool_gated(feat, rois, gate, src, c_base, c_take, rows, 7, 0.125)
+            torch.cuda.synchronize()
+            assert port.LOOP_LAUNCHES == before + 1
+            want = port.roi_loop_pool_gated_plain(feat, rois, gate, src, c_base, c_take, rows, 7,
+                                                  0.125)
+            assert torch.equal(got, want), (dtype, c_base, c_take, rows)
+    with pytest.raises(TypeError):
+        port.roi_loop_pool_gated(feat.half(), rois, gate, src, 0, 64)
+
+
 def test_model_forward_on_cuda(cuda):
-    """A narrow model end to end on the card: the pooler goes through the
-    kernel once per channel chunk, detections are finite."""
+    """Narrow models end to end on the card, plain and MRRP: the pooler goes
+    through its kernel once per channel chunk, detections are finite."""
     from wsovod_torch import get_cfg
     from wsovod_torch.models import build_model
 
@@ -92,4 +114,18 @@ def test_model_forward_on_cuda(cuda):
         det, probs, boxes = model(batch, embeddings=emb)
     torch.cuda.synchronize()
     assert port.LAUNCHES == before + 1  # R18 res5 has 512 channels: one chunk
+    assert torch.isfinite(det.scores[det.valid]).all() and det.valid.any()
+
+    cfg.MODEL.MRRP.MRRP_ON = True
+    cfg.MODEL.MRRP.BRANCH_DILATIONS = [1, 2, 4]
+    cfg.MODEL.MRRP.MRRP_STAGE = "res5"
+    cfg.MODEL.MRRP.TEST_BRANCH_IDX = -1
+    cfg.MODEL.ROI_BOX_HEAD.POOLER_TYPE = "ROILoopPool"
+    cfg.MODEL.ANCHOR_GENERATOR.SIZES = [[32, 64], [128, 256], [512, 768]]
+    model = build_model(cfg, device=cuda, seed=0)
+    before = port.LOOP_LAUNCHES
+    with torch.inference_mode():
+        det, probs, boxes = model(batch, embeddings=emb)
+    torch.cuda.synchronize()
+    assert port.LOOP_LAUNCHES == before + 1
     assert torch.isfinite(det.scores[det.valid]).all() and det.valid.any()

@@ -1,7 +1,8 @@
 """The port's plain gated ROIPool against the JAX reference
 ``wsovod_tpu.ops.roi_pool.roi_pool`` times the gate: exact (atol 0) in
 float32 and bfloat16, with overhanging, degenerate, .5-boundary and invalid
-boxes and a nonzero channel base."""
+boxes and a nonzero channel base; the wrapper contracts of both pool
+kernels (the ROILoopPool's numbers are in ``test_torch_mrrp.py``)."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -96,3 +97,26 @@ def test_wrapper_contract():
         with pytest.raises(ValueError):
             port.roi_pool_gated(f, r, g, c_base, 24)
             pytest.fail(f"{name} was accepted")
+
+    # the loop pool's wrapper: the same contract; a tiny temporary budget
+    # (one ROI per chunk) gives the same bits
+    src = torch.zeros(gate.shape, dtype=torch.int32) + torch.arange(2, dtype=torch.int32)[:, None]
+    before = port.LOOP_LAUNCHES
+    out = port.roi_loop_pool_gated(feat, rois, gate, src, 0, 24, 3, P, SCALE)
+    assert port.LOOP_LAUNCHES == before
+    assert torch.equal(out, port.roi_loop_pool_gated_plain(feat, rois, gate, src, 0, 24, 3, P, SCALE,
+                                                           max_elems=1))
+    bad_loop = {
+        "rows": ((feat, rois, gate, src, 0, 24), {"rows": 4}),
+        "src_shape": ((feat, rois, gate, src[:, :2], 0, 24), {}),
+        "src_range": ((feat, rois, gate, src + 1, 0, 24), {}),
+        "src_negative": ((feat, rois, gate, src - 1, 0, 24), {}),
+        "chunk": ((feat, rois, gate, src, 16, 24), {}),
+        "device": ((feat.to("meta"), rois.to("meta"), gate.to("meta"), src.to("meta"), 0, 24), {}),
+    }
+    for name, (args, kw) in bad_loop.items():
+        with pytest.raises(ValueError):
+            port.roi_loop_pool_gated(*args, **kw)
+            pytest.fail(f"loop {name} was accepted")
+    with pytest.raises(TypeError):
+        port.roi_loop_pool_gated(feat, rois, gate, src.float(), 0, 24)

@@ -3,9 +3,11 @@
 * reference-named random blobs -> ``wsovod_tpu``'s ``import_wsovod_model``
   -> ``state_dict_from_jax`` come back bit-equal, and load into the port's
   model with ``strict=True``, whose ``state_dict`` gives them back again;
-* ``wsovod_torch`` imports and builds its model with ``jax`` and ``flax``
-  blocked from import;
-* the port's config defaults, and the keys it refuses by name.
+* ``wsovod_torch`` imports and builds its models, plain and MRRP, with
+  ``jax``, ``flax`` and ``wsovod_tpu`` blocked from import;
+* the port's own config tree equals the JAX package's apart from the four
+  port defaults, before and after merging the YAMLs; the keys it refuses by
+  name.
 """
 
 import os
@@ -18,7 +20,7 @@ import numpy as np
 import pytest
 import torch
 
-from torch_port_common import REPO, embeddings, make_batch, tiny_cfg
+from torch_port_common import MRRP_YAML, REPO, TINY_YAML, embeddings, make_batch, tiny_cfg
 from wsovod_tpu.utils.weight_import import import_wsovod_model
 from wsovod_torch import check_supported, get_cfg
 from wsovod_torch.models import build_model
@@ -75,22 +77,27 @@ def _check_fc1_is_stored_chunk_major_inside():
 
 
 _BLOCKED = """
+import os
 import sys
 sys.modules["jax"] = None
 sys.modules["flax"] = None
+sys.modules["wsovod_tpu"] = None
 sys.path.insert(0, {repo!r})
 sys.path.insert(0, {tests!r})
 import torch
 import wsovod_torch
 from wsovod_torch.models import build_model
-from torch_port_common import tiny_cfg, make_batch, embeddings
-model = build_model(tiny_cfg(wsovod_torch.get_cfg()), device="cpu", seed=0)
+from torch_port_common import MRRP_YAML, TINY_YAML, tiny_cfg, make_batch, embeddings
 batch = {{k: torch.from_numpy(v) for k, v in make_batch().items()}}
-with torch.inference_mode():
-    det, probs, boxes = model(batch, embeddings=torch.from_numpy(embeddings()))
-assert bool(det.valid.any())
-bad = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "flax") and sys.modules[m] is not None]
+for yaml in (TINY_YAML, MRRP_YAML):
+    model = build_model(tiny_cfg(wsovod_torch.get_cfg(), yaml), device="cpu", seed=0)
+    with torch.inference_mode():
+        det, probs, boxes = model(batch, embeddings=torch.from_numpy(embeddings()))
+    assert bool(det.valid.any())
+bad = [m for m in sys.modules
+       if m.split(".")[0] in ("jax", "jaxlib", "flax", "wsovod_tpu") and sys.modules[m] is not None]
 assert not bad, bad
+assert "WSOVOD_NO_COMPILE_CACHE" not in os.environ
 print("OK")
 """
 
@@ -100,8 +107,9 @@ def test_port_config_and_jax_free_import():
     and refuses every unported key by name."""
     _check_port_runs_with_jax_blocked()
     _check_port_defaults()
-    for key, value in _UNPORTED:
-        cfg = tiny_cfg(get_cfg())
+    for yaml, key, value in ([(TINY_YAML, k, v) for k, v in _UNPORTED]
+                             + [(MRRP_YAML, k, v) for k, v in _UNPORTED_MRRP]):
+        cfg = tiny_cfg(get_cfg(), yaml)
         node = cfg
         *parents, leaf = key.split(".")
         for p in parents:
@@ -120,14 +128,45 @@ def _check_port_runs_with_jax_blocked():
     assert proc.returncode == 0 and "OK" in proc.stdout, proc.stderr[-3000:]
 
 
+# the port's defaults where its tree differs from the JAX package's
+_PORT_DEFAULTS = {"MODEL.DEVICE": "cuda", "TPU.DAN_FC1_QUANT": "none",
+                  "TPU.RPN_CONV_QUANT": "none", "TPU.COMPUTE_DTYPE": "bfloat16"}
+
+
+def _flat(node, prefix=""):
+    out = {}
+    for k, v in node.items():
+        if isinstance(v, dict):
+            out.update(_flat(v, f"{prefix}{k}."))
+        else:
+            out[prefix + k] = v
+    return out
+
+
 def _check_port_defaults():
-    cfg = get_cfg()
-    assert cfg.TPU.DAN_FC1_QUANT == "none"
-    assert cfg.TPU.RPN_CONV_QUANT == "none"
-    assert cfg.TPU.COMPUTE_DTYPE == "bfloat16"
-    cfg.merge_from_file(os.path.join(REPO, "configs", "COCO-Detection", "WSOVOD_WSR_50_DC5_1x.yaml"))
-    cfg.TEST.AUG.ENABLED = False
-    check_supported(cfg)  # the slice's config passes once TTA is off
+    """The port's tree is the JAX package's, key by key, apart from the
+    port defaults, as defaults and after merging the plain and the MRRP
+    YAMLs (R18 and R50); the two slices' configs pass once TTA is off."""
+    from wsovod_tpu.config import get_cfg as jax_get_cfg
+
+    configs = os.path.join(REPO, "configs", "COCO-Detection")
+    for yaml in (None, TINY_YAML, MRRP_YAML, os.path.join(configs, "WSOVOD_WSR_50_DC5_1x.yaml"),
+                 os.path.join(configs, "WSOVOD_MRRP_WSR_50_DC5_1x.yaml")):
+        port, ref = get_cfg(), jax_get_cfg()
+        if yaml is not None:
+            port.merge_from_file(yaml)
+            ref.merge_from_file(yaml)
+        port, ref = _flat(port), _flat(ref)
+        assert sorted(port) == sorted(ref), yaml
+        differ = {k for k in port if port[k] != ref[k] or type(port[k]) is not type(ref[k])}
+        assert differ <= set(_PORT_DEFAULTS), (yaml, differ)
+        for k, v in _PORT_DEFAULTS.items():
+            assert port[k] == v, (yaml, k)
+        if yaml is not None and "WSR_50" in yaml:
+            cfg = get_cfg()
+            cfg.merge_from_file(yaml)
+            cfg.TEST.AUG.ENABLED = False
+            check_supported(cfg)
 
 
 _UNPORTED = [
@@ -137,7 +176,14 @@ _UNPORTED = [
     ("TPU.BACKBONE_CONV_QUANT", "int8"),
     ("MODEL.MRRP.MRRP_ON", True),
     ("MODEL.ROI_BOX_HEAD.POOLER_TYPE", "ROIAlignV2"),
-    ("MODEL.ROI_BOX_HEAD.POOLER_TYPE", "ROILoopPool"),
     ("MODEL.META_ARCHITECTURE", "GeneralizedRCNN_WSOVOD_MixedDatasets"),
     ("MODEL.BACKBONE.NAME", "build_vgg_backbone"),
+    ("MODEL.BACKBONE.NAME", "build_mrrp_vgg_backbone"),
+]
+# refused on the MRRP config (ROILoopPool is ported, with or without MRRP)
+_UNPORTED_MRRP = [
+    ("MODEL.ROI_BOX_HEAD.POOLER_TYPE", "ROIAlignV2"),
+    ("MODEL.MRRP.MRRP_STAGE", "res4"),
+    ("MODEL.MRRP.TEST_BRANCH_IDX", 3),
+    ("MODEL.MRRP.BRANCH_DILATIONS", [1, 2]),
 ]

@@ -11,14 +11,18 @@ import numpy as np
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TINY_YAML = os.path.join(REPO, "configs", "COCO-Detection", "WSOVOD_WSR_18_DC5_1x.yaml")
+MRRP_YAML = os.path.join(REPO, "configs", "COCO-Detection", "WSOVOD_MRRP_WSR_18_DC5_1x.yaml")
 NUM_CLASSES = 5
 WEIGHT_DIM = 16
 
 
-def tiny_cfg(cfg):
+def tiny_cfg(cfg, yaml: str = TINY_YAML, test_branch_idx=None):
     """The golden-forward overrides (``tests/test_golden_forward.py``) on
-    the R18 DC5 config, float32, no int8, no TTA."""
-    cfg.merge_from_file(TINY_YAML)
+    an R18 DC5 config (default the plain one; ``MRRP_YAML`` for MRRP, with
+    ``test_branch_idx`` if given), float32, no int8, no TTA."""
+    cfg.merge_from_file(yaml)
+    if test_branch_idx is not None:
+        cfg.MODEL.MRRP.TEST_BRANCH_IDX = test_branch_idx
     cfg.MODEL.ROI_HEADS.NUM_CLASSES = NUM_CLASSES
     cfg.MODEL.RPN.PRE_NMS_TOPK_TEST = 64
     cfg.MODEL.RPN.POST_NMS_TOPK_TEST = 16
@@ -95,16 +99,16 @@ def random_params(shapes, seed: int = 0):
 
 
 @functools.lru_cache(maxsize=None)
-def jax_reference():
-    """``(model, params)`` of the JAX package on the tiny config, with
-    ``random_params``."""
+def jax_reference(yaml: str = TINY_YAML, test_branch_idx=None):
+    """``(model, params)`` of the JAX package on the tiny config (``yaml``
+    and ``test_branch_idx`` as ``tiny_cfg``), with ``random_params``."""
     import jax
     import jax.numpy as jnp
 
     from wsovod_tpu.config import get_cfg
     from wsovod_tpu.models import build_model
 
-    model = build_model(tiny_cfg(get_cfg()))
+    model = build_model(tiny_cfg(get_cfg(), yaml, test_branch_idx))
     batch = {k: jnp.asarray(v) for k, v in make_batch().items()}
     emb = jnp.asarray(embeddings())
     shapes = jax.eval_shape(
@@ -114,26 +118,27 @@ def jax_reference():
 
 
 @functools.lru_cache(maxsize=None)
-def jax_stages(seed: int):
-    """The JAX model on ``make_batch(seed)``, as numpy: ``(features, rpn
-    proposals, data-aware vector, forward)`` where ``forward`` is
-    ``model.apply(..., train=False, return_proposals=True)``'s ``(det,
-    probs, boxes, (proposal_boxes, objectness, valid))``. One compiled
-    program serves every seed."""
+def jax_stages(seed: int, yaml: str = TINY_YAML, test_branch_idx=None):
+    """The JAX model (``jax_reference(yaml, test_branch_idx)``) on
+    ``make_batch(seed)``, as numpy: ``(features, rpn proposals, data-aware
+    vector, forward)`` where ``forward`` is ``model.apply(..., train=False,
+    return_proposals=True)``'s ``(det, probs, boxes, (proposal_boxes,
+    objectness, valid))``. One compiled program per config serves every
+    seed."""
     import jax
     import jax.numpy as jnp
 
-    model, params = jax_reference()
+    model, params = jax_reference(yaml, test_branch_idx)
     batch = {k: jnp.asarray(v) for k, v in make_batch(seed).items()}
-    return jax.tree_util.tree_map(np.array, _jax_stage_fn()(params, batch))
+    return jax.tree_util.tree_map(np.array, _jax_stage_fn(yaml, test_branch_idx)(params, batch))
 
 
 @functools.lru_cache(maxsize=None)
-def _jax_stage_fn():
+def _jax_stage_fn(yaml: str, test_branch_idx):
     import jax
     import jax.numpy as jnp
 
-    model, _ = jax_reference()
+    model, _ = jax_reference(yaml, test_branch_idx)
     emb = jnp.asarray(embeddings())
 
     def stages(m, b):
@@ -151,13 +156,13 @@ def _jax_stage_fn():
     return jax.jit(lambda p, b: model.apply(p, b, method=stages))
 
 
-def torch_model_from_jax():
+def torch_model_from_jax(yaml: str = TINY_YAML, test_branch_idx=None):
     """The port's model on the CPU with the JAX reference's parameters."""
     from wsovod_torch import get_cfg
     from wsovod_torch.models import build_model
     from wsovod_torch.utils.weight_import import state_dict_from_jax
 
-    _, params = jax_reference()
-    model = build_model(tiny_cfg(get_cfg()), device="cpu", seed=None)
+    _, params = jax_reference(yaml, test_branch_idx)
+    model = build_model(tiny_cfg(get_cfg(), yaml, test_branch_idx), device="cpu", seed=None)
     model.load_state_dict(state_dict_from_jax(params), strict=True)
     return model

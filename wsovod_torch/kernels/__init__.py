@@ -16,7 +16,7 @@ import os
 import shutil
 import subprocess
 import tempfile
-from typing import Dict, Optional
+from typing import Dict, Optional, Sequence
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_HERE, "csrc")
@@ -48,25 +48,41 @@ def library_path(source: str) -> str:
     return os.path.join(BUILD_DIR, f"lib{stem}_{digest}.so")
 
 
+def build_all(sources: Sequence[str]) -> Dict[str, str]:
+    """Compile every ``csrc/<source>`` that has no library of the same
+    content hash yet, all ``nvcc`` processes started together; returns
+    ``{source: library path}``. Raises with the compiler's output if any
+    build fails; on success ``BUILD_LOG[source]`` keeps ptxas's register
+    report."""
+    paths = {src: library_path(src) for src in sources}
+    jobs = {}
+    for src, out in paths.items():
+        if os.path.isfile(out) or src in jobs:
+            continue
+        os.makedirs(BUILD_DIR, exist_ok=True)
+        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+        os.close(fd)
+        cmd = [_nvcc(), *ARCH_FLAGS, "-std=c++17", "-O3", "-Xptxas", "-v", "-shared",
+               "-Xcompiler", "-fPIC", "-o", tmp, os.path.join(CSRC, src)]
+        jobs[src] = (tmp, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                                           text=True))
+    failed = []
+    for src, (tmp, proc) in jobs.items():
+        stdout, stderr = proc.communicate()
+        if proc.returncode != 0:
+            os.unlink(tmp)
+            failed.append(f"nvcc failed for {src}:\n{stdout}\n{stderr}")
+            continue
+        BUILD_LOG[src] = (stdout + stderr).strip()
+        os.replace(tmp, paths[src])  # atomic: a concurrent loader never sees half a file
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return paths
+
+
 def build(source: str) -> str:
-    """Compile ``csrc/<source>`` unless a library of the same content hash
-    exists; returns its path. Raises with the compiler's output on failure;
-    on success ``BUILD_LOG[source]`` keeps ptxas's register report."""
-    out = library_path(source)
-    if os.path.isfile(out):
-        return out
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *ARCH_FLAGS, "-std=c++17", "-O3", "-Xptxas", "-v", "-shared",
-           "-Xcompiler", "-fPIC", "-o", tmp, os.path.join(CSRC, source)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed for {source}:\n{proc.stdout}\n{proc.stderr}")
-    BUILD_LOG[source] = (proc.stdout + proc.stderr).strip()
-    os.replace(tmp, out)  # atomic: a concurrent loader never sees half a file
-    return out
+    """``build_all([source])[source]``."""
+    return build_all([source])[source]
 
 
 def load(source: str) -> ctypes.CDLL:

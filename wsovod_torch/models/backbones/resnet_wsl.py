@@ -7,18 +7,24 @@
   downsample in a trailing 2x2 max pool on their last block, the other
   pooled stages keep their size with the zero-padded stride-1 pool;
 * res4 and res5 are dilated by ``RES5_DILATION``; R18/R34 use
-  ``BasicBlock``, R50 and deeper ``BottleneckBlock``.
+  ``BasicBlock``, R50 and deeper ``BottleneckBlock``;
+* MRRP (``resnet_wsl.py:157-243`` of the JAX package): every block of the
+  MRRP stage (res5) runs once per branch, with the branch's dilation and the
+  block's one set of weights, and the stage's output concatenates the
+  branches on the batch axis, branch-major: ``[n_br * B, h, w, C]``. With a
+  test branch index ``>= 0`` only that branch's dilation runs.
 
 Parameter names follow d2's module layout (``stem.conv1``,
 ``res2.0.conv1.norm``, ``res4.0.shortcut``), so reference checkpoints load
-with ``load_state_dict``. The forward takes and returns NHWC tensors; inside
+with ``load_state_dict``; the MRRP branches share weights, so an MRRP
+model has the same names. The forward takes and returns NHWC tensors; inside
 it runs NCHW in ``channels_last`` memory, where both boundary permutes are
-free views. MRRP is not ported.
+free views.
 """
 
 from __future__ import annotations
 
-from typing import Dict, List, Sequence
+from typing import Dict, List, Optional, Sequence
 
 import torch
 import torch.nn.functional as F
@@ -52,9 +58,9 @@ class BasicBlock(nn.Module):
             ConvNorm(in_channels, out_channels, 1, norm=norm) if in_channels != out_channels else None
         )
 
-    def forward(self, x):
-        out = F.relu(self.conv1(x))
-        out = self.conv2(out)
+    def forward(self, x, dilation: Optional[int] = None):
+        out = F.relu(self.conv1(x, dilation))
+        out = self.conv2(out, dilation)
         shortcut = self.shortcut(x) if self.shortcut is not None else x
         out = F.relu(out + shortcut)
         return max_pool_2x2(out, self.pool_stride) if self.has_pool else out
@@ -73,9 +79,9 @@ class BottleneckBlock(nn.Module):
             ConvNorm(in_channels, out_channels, 1, norm=norm) if in_channels != out_channels else None
         )
 
-    def forward(self, x):
+    def forward(self, x, dilation: Optional[int] = None):
         out = F.relu(self.conv1(x))
-        out = F.relu(self.conv2(out))
+        out = F.relu(self.conv2(out, dilation))
         out = self.conv3(out)
         shortcut = self.shortcut(x) if self.shortcut is not None else x
         out = F.relu(out + shortcut)
@@ -88,16 +94,26 @@ _BLOCKS_PER_STAGE = {18: [2, 2, 2, 2], 34: [3, 4, 6, 3], 50: [3, 4, 6, 3],
 
 class WSRResNet(nn.Module):
     """``forward(x [B, H, W, 3])`` -> ``{name: [B, h, w, C]}`` (NHWC views of
-    ``channels_last`` tensors) for the names in ``out_features``."""
+    ``channels_last`` tensors) for the names in ``out_features``; with MRRP
+    the stages from ``mrrp_stage`` on give ``[n_br * B, h, w, C]``, where
+    ``n_br`` is ``len(mrrp_dilations)``, or 1 with ``mrrp_test_branch_idx
+    >= 0``."""
 
     def __init__(self, depth=18, stem_out_channels=64, res2_out_channels=64, num_groups=1,
                  width_per_group=64, res5_dilation=2, norm="FrozenBN",
-                 out_features: Sequence[str] = ("res5",)):
+                 out_features: Sequence[str] = ("res5",), mrrp_on: bool = False,
+                 mrrp_dilations: Sequence[int] = (1, 2, 4), mrrp_stage: str = "res5",
+                 mrrp_test_branch_idx: int = -1):
         super().__init__()
         self.depth = depth
         self.res5_dilation = res5_dilation
         self.out_features = tuple(out_features)
         self.res2_out_channels = res2_out_channels
+        self.mrrp_stage = mrrp_stage if mrrp_on else None
+        self.branch_dilations = (
+            tuple(mrrp_dilations) if mrrp_test_branch_idx < 0
+            else (mrrp_dilations[mrrp_test_branch_idx],)
+        )
         basic = depth in (18, 34)
         self.stem = BasicStem(3, stem_out_channels, norm)
         in_ch = stem_out_channels
@@ -146,7 +162,14 @@ class WSRResNet(nn.Module):
         x = self.stem(x.permute(0, 3, 1, 2).contiguous(memory_format=torch.channels_last))
         outputs = {}
         for name in self.stage_names:
-            x = getattr(self, name)(x)
+            stage = getattr(self, name)
+            if name == self.mrrp_stage:
+                branches = [x] * len(self.branch_dilations)
+                for block in stage:
+                    branches = [block(t, d) for t, d in zip(branches, self.branch_dilations)]
+                x = torch.cat(branches, dim=0)
+            else:
+                x = stage(x)
             if name in self.out_features:
                 outputs[name] = x.permute(0, 2, 3, 1).contiguous()
             if len(outputs) == len(self.out_features):
@@ -156,6 +179,7 @@ class WSRResNet(nn.Module):
 
 def build_wsl_resnet_backbone(cfg) -> WSRResNet:
     r = cfg.MODEL.RESNETS
+    mrrp = cfg.MODEL.MRRP
     if r.DEPTH in (18, 34):
         assert r.RES2_OUT_CHANNELS == 64, (
             f"Set MODEL.RESNETS.RES2_OUT_CHANNELS = 64 for R18/R34 (got {r.RES2_OUT_CHANNELS})"
@@ -169,4 +193,8 @@ def build_wsl_resnet_backbone(cfg) -> WSRResNet:
         res5_dilation=r.RES5_DILATION,
         norm=r.NORM,
         out_features=tuple(r.OUT_FEATURES),
+        mrrp_on=mrrp.MRRP_ON,
+        mrrp_dilations=tuple(mrrp.BRANCH_DILATIONS),
+        mrrp_stage=mrrp.MRRP_STAGE,
+        mrrp_test_branch_idx=mrrp.TEST_BRANCH_IDX,
     )

@@ -65,7 +65,17 @@ class DataAwareFeaturesHead(nn.Module):
         """``feature [B, H, W, C]`` (NHWC), ``pixel_valid [B, H, W]`` ->
         ``[B, features_dim]`` float32. The pool sums in float32 and rounds to
         the feature dtype, the dtype the reference's pooled vector has; the
-        head then runs in float32 (the reference's dtype promotion)."""
+        head then runs in float32 (the reference's dtype promotion).
+
+        An MRRP feature ``[n_br * B, H, W, C]`` (branch-major, ``B`` from
+        ``pixel_valid``) is first averaged over its branches and rounded to
+        the feature dtype (``class_heads.py:106-116`` of the JAX package,
+        which decides from ``NUM_BRANCH`` and the batch's divisibility and so
+        also averages a single-branch batch whose size divides by it; here
+        the image count decides)."""
+        if pixel_valid is not None and feature.shape[0] > pixel_valid.shape[0]:
+            b = pixel_valid.shape[0]
+            feature = feature.float().reshape((-1, b) + feature.shape[1:]).mean(dim=0).to(feature.dtype)
         f = feature.float()
         if pixel_valid is not None and pixel_valid.shape[0] == feature.shape[0]:
             m = pixel_valid[..., None].float()

@@ -8,6 +8,8 @@ JAX package's ``kernel.astype(x.dtype)``.
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -44,21 +46,23 @@ def get_norm(norm: str, features: int):
 class ConvNorm(nn.Module):
     """Conv (no bias) + optional frozen norm, d2's ``Conv2d(norm=...)``.
     Padding is the explicit symmetric ``d*(k-1)//2`` of the reference, not
-    "same"."""
+    "same". ``forward(x, dilation=d)`` runs the same weight at dilation
+    ``d`` (padding ``d*(k-1)//2``): MRRP's shared-weight branches."""
 
     def __init__(self, in_channels, out_channels, kernel_size=3, stride=1, dilation=1,
                  groups=1, norm="FrozenBN"):
         super().__init__()
         self.stride, self.dilation, self.groups = stride, dilation, groups
-        self.padding = dilation * (kernel_size - 1) // 2
+        self.kernel_size = kernel_size
         self.weight = nn.Parameter(
             torch.empty(out_channels, in_channels // groups, kernel_size, kernel_size)
         )
         self.norm = get_norm(norm, out_channels)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = F.conv2d(x, self.weight.to(x.dtype), None, self.stride, self.padding,
-                     self.dilation, self.groups)
+    def forward(self, x: torch.Tensor, dilation: Optional[int] = None) -> torch.Tensor:
+        d = self.dilation if dilation is None else dilation
+        x = F.conv2d(x, self.weight.to(x.dtype), None, self.stride, d * (self.kernel_size - 1) // 2,
+                     d, self.groups)
         return self.norm(x) if self.norm is not None else x
 
 

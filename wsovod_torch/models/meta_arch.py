@@ -2,6 +2,11 @@
 ``wsovod_tpu/models/meta_arch.py:36-190,297-332``): normalise -> backbone ->
 RPN -> fuse SAM proposals -> data-aware head -> ROI heads.
 
+Under MRRP each proposal carries ``level_ids``, whose ``// 1000`` names the
+branch it pools from: RPN rows their branch, SAM rows branch 0 (the JAX
+package's inference, which passes no random key), or a random branch drawn
+from an explicit ``torch.Generator``.
+
 Batch convention (padded, static shapes, as the JAX package):
   images      [B, H, W, 3] raw pixels (BGR, the reference's pixel stats)
   image_sizes [B, 2] true (h, w)
@@ -20,6 +25,7 @@ from ..config import check_supported
 from ..structures.instances import Instances, cat_instances
 from .backbones import build_backbone
 from .class_heads import DataAwareFeaturesHead
+from .layers import FrozenBatchNorm2d
 from .poolers import build_pooler
 from .roi_heads import WSOVODROIHeads, build_roi_heads
 from .rpn import WSOVODRPN_V2, build_proposal_generator
@@ -31,8 +37,10 @@ class GeneralizedRCNN_WSOVOD(nn.Module):
     def __init__(self, backbone: nn.Module, proposal_generator: Optional[WSOVODRPN_V2],
                  roi_heads: WSOVODROIHeads, data_aware_head: Optional[DataAwareFeaturesHead],
                  pixel_mean=(102.9801, 115.9465, 122.7717), pixel_std=(1.0, 1.0, 1.0),
-                 compute_dtype: torch.dtype = torch.float32, in_feature: str = "res5"):
+                 compute_dtype: torch.dtype = torch.float32, in_feature: str = "res5",
+                 mrrp_num_branch: int = 0):
         super().__init__()
+        self.mrrp_num_branch = mrrp_num_branch
         self.backbone = backbone
         self.proposal_generator = proposal_generator
         self.roi_heads = roi_heads
@@ -50,9 +58,12 @@ class GeneralizedRCNN_WSOVOD(nn.Module):
         x = (images - self.pixel_mean.to(images.dtype)) / self.pixel_std.to(images.dtype)
         return x.to(self.compute_dtype)
 
-    def _proposals(self, features: Dict[str, torch.Tensor], batch: Dict[str, torch.Tensor]) -> Instances:
+    def _proposals(self, features: Dict[str, torch.Tensor], batch: Dict[str, torch.Tensor],
+                   generator: Optional[torch.Generator] = None) -> Instances:
         """RPN proposals (score ``sigmoid(logit)``) fused with the loaded SAM
-        proposals: RPN rows first, then SAM rows."""
+        proposals: RPN rows first, then SAM rows. Under MRRP with an RPN,
+        ``generator`` draws each SAM row's branch; without one they take
+        branch 0."""
         parts = []
         if self.proposal_generator is not None:
             rpn = self.proposal_generator(features, batch["image_sizes"])
@@ -62,11 +73,16 @@ class GeneralizedRCNN_WSOVOD(nn.Module):
         if batch.get("sam_boxes") is not None:
             sam_valid = batch["sam_valid"].bool()
             scores = batch["sam_scores"].float()
+            level_ids = torch.zeros(sam_valid.shape, dtype=torch.int32, device=sam_valid.device)
+            if generator is not None and self.proposal_generator is not None and self.mrrp_num_branch:
+                level_ids = 1000 * torch.randint(
+                    0, self.mrrp_num_branch, sam_valid.shape, generator=generator,
+                    dtype=torch.int32, device=generator.device).to(sam_valid.device)
             parts.append(Instances(
                 sam_valid,
                 proposal_boxes=batch["sam_boxes"].float(),
                 objectness_logits=torch.where(sam_valid, scores, torch.zeros((), device=scores.device)),
-                level_ids=torch.zeros(sam_valid.shape, dtype=torch.int32, device=sam_valid.device),
+                level_ids=level_ids,
             ))
         assert parts, "need an RPN or loaded proposals"
         return parts[0] if len(parts) == 1 else cat_instances(*parts)
@@ -83,12 +99,12 @@ class GeneralizedRCNN_WSOVOD(nn.Module):
 
     def forward(self, batch: Dict[str, torch.Tensor], embeddings: Optional[torch.Tensor] = None,
                 classifier: Optional[torch.Tensor] = None, append_background: bool = True,
-                return_proposals: bool = False):
+                return_proposals: bool = False, generator: Optional[torch.Generator] = None):
         """Inference: ``(detections, probs [B, P, C+1], boxes [B, P, 4])``,
         plus ``(proposal_boxes, objectness, valid)`` with
-        ``return_proposals``."""
+        ``return_proposals``. ``generator``: see ``_proposals``."""
         features = self.backbone(self._normalize(batch["images"]))
-        proposals = self._proposals(features, batch)
+        proposals = self._proposals(features, batch, generator)
         daf = None
         if self.data_aware_head is not None:
             daf = self._data_aware_features(features[self.in_feature], batch)
@@ -110,7 +126,12 @@ def init_parameters(model: GeneralizedRCNN_WSOVOD, generator: torch.Generator) -
     backbone convs He fan-out, RPN convs N(0, 0.01) with zero bias, DAN fcs
     N(0, 0.005) with bias 0.1, classifier projections LeCun fan-in, box
     regressor N(0, 0.001), data-aware linears U[0, 0.02) and prototypes
-    N(0, 1). Frozen-BN statistics keep their identity defaults."""
+    N(0, 1). The backbone's frozen-BN scales are drawn U[0.4, 0.8), its other
+    statistics keep their identity defaults: with identity statistics the
+    random convs grow the activations through the residual stages until, at
+    the R50 test shape (688x1056), res5 reaches about 1e4 and every RPN
+    delta overflows, so the RPN proposes nothing; these scales keep res5 at
+    a standard deviation of about 0.3 and give the RPN valid proposals."""
     for name, p in model.named_parameters():
         if name.startswith("backbone."):
             o, _, kh, kw = p.shape
@@ -144,6 +165,9 @@ def init_parameters(model: GeneralizedRCNN_WSOVOD, generator: torch.Generator) -
             p.normal_(0.0, 1.0, generator=generator)
         else:
             raise KeyError(f"no initialiser for parameter {name}")
+    for module in model.backbone.modules():
+        if isinstance(module, FrozenBatchNorm2d):
+            module.weight.uniform_(0.4, 0.8, generator=generator)
 
 
 def build_model(cfg, device=None, seed: Optional[int] = 0) -> GeneralizedRCNN_WSOVOD:
@@ -169,6 +193,7 @@ def build_model(cfg, device=None, seed: Optional[int] = 0) -> GeneralizedRCNN_WS
         backbone, proposal_generator, roi_heads, data_aware,
         pixel_mean=tuple(cfg.MODEL.PIXEL_MEAN), pixel_std=tuple(cfg.MODEL.PIXEL_STD),
         compute_dtype=dtype, in_feature=in_feature,
+        mrrp_num_branch=cfg.MODEL.MRRP.NUM_BRANCH if cfg.MODEL.MRRP.MRRP_ON else 0,
     )
     if seed is not None:
         init_parameters(model, torch.Generator().manual_seed(seed))

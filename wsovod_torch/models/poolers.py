@@ -1,24 +1,33 @@
-"""ROI feature pooler for the plain gated ROIPool (counterpart of the
-inference ``ROIPool`` branch of ``wsovod_tpu/models/poolers.py``
-``ROIPooler.fused_chunk_pool``).
+"""ROI feature pooler for the gated ROIPool and ROILoopPool (counterpart of
+the inference branches of ``wsovod_tpu/models/poolers.py``
+``ROIPooler.fused_chunk_pool``, ``:171-186,571-607,801-833``).
 
 The pooler applies the WSOVOD objectness gate ``(objectness + 1) * valid``
 inside the pool kernel, zeroes invalid boxes, and hands the DAN one channel
 chunk of ``c_take`` channels at a time (512 where C is a multiple of 512,
 else all of C), so the ``[B, N, 7, 7, C]`` pooled tensor never exists in
-full. None of the reference's TPU schedule toggles (hpyr, wsplit, cls, n56c,
-tile8, maxabs, fullrow) exist here. Each chunk is one call of this module,
-so a forward hook sees every chunk the model pools.
+full. Each chunk is one call of this module, so a forward hook sees every
+chunk the model pools.
+
+``ROILoopPool`` pools only the ROI row (``rows=1``): at inference the frame
+and context rows feed nothing but the training-time miner (see
+``roi_heads.py``). Under MRRP the feature is the branch-major concat ``[n_br
+* B, H, W, C]``; ROI ``n`` of image ``b`` reads copy ``branch * B + b`` with
+``branch = (level_ids // 1000) % n_br``, passed to the kernel per ROI. The
+JAX package's ``branch_partition`` sort and unsort exist only because a TPU
+block reads one branch's tile; a per-ROI source index needs neither. None of
+its TPU schedule toggles (hpyr, wsplit, cls, n56c, tile8, maxabs, fullrow)
+exist here.
 """
 
 from __future__ import annotations
 
-from typing import Iterator, Sequence
+from typing import Iterator, Optional, Sequence
 
 import torch
 from torch import nn
 
-from ..ops.roi_pool import roi_pool_gated
+from ..ops.roi_pool import roi_loop_pool_gated, roi_pool_gated
 
 
 def chunk_width(channels: int) -> int:
@@ -27,28 +36,50 @@ def chunk_width(channels: int) -> int:
 
 
 class ROIPooler(nn.Module):
-    def __init__(self, output_size: int, scale: float):
+    def __init__(self, output_size: int, scale: float, pooler_type: str = "ROIPool",
+                 context_ratio: float = 1.8):
         super().__init__()
+        if pooler_type not in ("ROIPool", "ROILoopPool"):
+            raise ValueError(f"unsupported pooler type {pooler_type}")
         self.output_size = output_size
         self.scale = float(scale)
+        self.pooler_type = pooler_type
+        self.context_ratio = context_ratio
 
     def forward(self, feat: torch.Tensor, boxes: torch.Tensor, gate: torch.Tensor,
-                c_base: int, c_take: int) -> torch.Tensor:
-        """One gated chunk ``[B, N, P, P, c_take]`` (see ``roi_pool_gated``)."""
+                c_base: int, c_take: int, src: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """One gated chunk ``[B, N, P, P, c_take]``: ``roi_pool_gated``, or
+        the ROI row of ``roi_loop_pool_gated`` reading copy ``src [B, N]``."""
+        if self.pooler_type == "ROILoopPool":
+            return roi_loop_pool_gated(feat, boxes, gate, src, c_base, c_take, 1, self.output_size,
+                                       self.scale, self.context_ratio)[0]
         return roi_pool_gated(feat, boxes, gate, c_base, c_take, self.output_size, self.scale)
 
     def chunks(self, feat: torch.Tensor, boxes: torch.Tensor, objectness: torch.Tensor,
-               valid: torch.Tensor, c_take: int) -> Iterator[torch.Tensor]:
-        """Lazily pool every channel chunk of ``feat [B, H, W, C]`` for
-        ``boxes [B, N, 4]``, gated by ``(objectness + 1) * valid``."""
+               valid: torch.Tensor, c_take: int,
+               level_ids: Optional[torch.Tensor] = None) -> Iterator[torch.Tensor]:
+        """Lazily pool every channel chunk of ``feat [S, H, W, C]`` for
+        ``boxes [B, N, 4]``, gated by ``(objectness + 1) * valid``; ``S`` is
+        ``B``, or ``n_br * B`` for an MRRP ROILoopPool routed by
+        ``level_ids``."""
         gate = ((objectness.float() + 1.0) * valid.float()).contiguous()
         zero = torch.zeros((), dtype=torch.float32, device=boxes.device)
         boxes = torch.where(valid[..., None], boxes.float(), zero).contiguous()
+        src = None
+        if self.pooler_type == "ROILoopPool":
+            b = boxes.shape[0]
+            n_br = feat.shape[0] // b
+            image = torch.arange(b, dtype=torch.int32, device=boxes.device)[:, None]
+            branch = (torch.zeros(boxes.shape[:2], dtype=torch.int32, device=boxes.device)
+                      if level_ids is None
+                      else torch.remainder(torch.div(level_ids, 1000, rounding_mode="floor"), n_br))
+            src = (branch * b + image).to(torch.int32).contiguous()
         for c_base in range(0, feat.shape[-1], c_take):
-            yield self(feat, boxes, gate, c_base, c_take)
+            yield self(feat, boxes, gate, c_base, c_take, src)
 
 
 def build_pooler(cfg, strides: Sequence[int]) -> ROIPooler:
-    """Single-level plain ROIPool (``config.check_supported`` refuses the
-    other pooler types and multi-level pooling)."""
-    return ROIPooler(cfg.MODEL.ROI_BOX_HEAD.POOLER_RESOLUTION, 1.0 / strides[0])
+    """Single-level ROIPool or ROILoopPool (``config.check_supported``
+    refuses the other pooler types and multi-level pooling)."""
+    rb = cfg.MODEL.ROI_BOX_HEAD
+    return ROIPooler(rb.POOLER_RESOLUTION, 1.0 / strides[0], rb.POOLER_TYPE)

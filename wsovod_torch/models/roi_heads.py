@@ -3,7 +3,15 @@
 stream into the DAN, the data-aware vector is added to every ROI feature,
 the K refinement heads score against the class embeddings, and
 ``fast_rcnn_inference`` makes the detections. Mining, labelling and losses
-belong to the training slice."""
+belong to the training slice.
+
+With the ``ROILoopPool`` pooler only the ROI row is pooled and run through
+the DAN. At inference the JAX package pools all three rows (ROI, frame,
+context), runs fc1 and fc2 on each, adds the data-aware vector to each, and
+then keeps only the ROI row (``roi_feats, _ = ...`` at
+``roi_heads.py:518-520``): the frame and context rows feed only the
+training-time object miner. The DAN works row by row, so the ROI row's
+result is the same."""
 
 from __future__ import annotations
 
@@ -53,7 +61,8 @@ class WSOVODROIHeads(nn.Module):
                              data_aware_features: Optional[torch.Tensor]) -> torch.Tensor:
         feat = features[self.in_features[0]]
         chunks = self.pooler.chunks(feat, proposals.proposal_boxes, proposals.objectness_logits,
-                                    proposals.valid, self.c_take)
+                                    proposals.valid, self.c_take,
+                                    level_ids=proposals.fields().get("level_ids"))
         box_features = self.box_head(chunks)  # [B, P, F]
         if data_aware_features is not None:
             box_features = box_features + data_aware_features[:, None, :].to(box_features.dtype)

@@ -1,6 +1,13 @@
 """The anchor-based ``WSOVODRPN_V2`` at inference (counterpart of
-``wsovod_tpu/models/rpn.py:48-73,111-221``). Its losses, computed after the
-ROI heads from mined pseudo ground truth, belong to the training slice."""
+``wsovod_tpu/models/rpn.py:48-73,111-221,297-348``). Its losses, computed
+after the ROI heads from mined pseudo ground truth, belong to the training
+slice.
+
+Under MRRP the backbone feature ``[n_br * B, h, w, C]`` is split back into
+``n_br`` per-branch levels (``n_br`` is 1 with a test branch index ``>= 0``,
+the JAX package's ``mrrp_fast``), one anchor level per branch (all at the
+feature's stride), one head shared by all levels, then the group top-k of
+``find_top_rpn_proposals_group``."""
 
 from __future__ import annotations
 
@@ -14,7 +21,7 @@ from ..structures.boxes import apply_deltas
 from ..structures.instances import Instances
 from .anchors import AnchorGenerator
 from .layers import Conv2d, QuantizableConv3x3
-from .proposal_utils import find_top_rpn_proposals
+from .proposal_utils import find_top_rpn_proposals, find_top_rpn_proposals_group
 
 
 class StandardRPNHead(nn.Module):
@@ -23,6 +30,7 @@ class StandardRPNHead(nn.Module):
 
     def __init__(self, in_channels: int, num_anchors: int, box_dim: int = 4):
         super().__init__()
+        self.num_anchors = num_anchors
         self.conv = QuantizableConv3x3(in_channels, in_channels)
         self.objectness_logits = Conv2d(in_channels, num_anchors, 1)
         self.anchor_deltas = Conv2d(in_channels, num_anchors * box_dim, 1)
@@ -49,16 +57,21 @@ class WSOVODRPN_V2(nn.Module):
     def __init__(self, in_channels: int, in_features=("res5",), strides=(8,),
                  anchor_sizes=((32, 64, 128, 256, 512),), anchor_aspect_ratios=((0.5, 1.0, 2.0),),
                  anchor_offset=0.0, nms_thresh=0.7, min_box_size=0.0, pre_nms_topk_test=2048,
-                 post_nms_topk_test=1024, bbox_reg_weights=(1.0, 1.0, 1.0, 1.0)):
+                 post_nms_topk_test=1024, bbox_reg_weights=(1.0, 1.0, 1.0, 1.0),
+                 mrrp_on: bool = False, mrrp_num_branch: int = 3, mrrp_test_all: bool = True):
         super().__init__()
+        self.mrrp_on = mrrp_on
+        self.n_branch = mrrp_num_branch if mrrp_test_all else 1
         self.in_features = tuple(in_features)
         self.nms_thresh = nms_thresh
         self.min_box_size = min_box_size
         self.pre_nms_topk = pre_nms_topk_test
         self.post_nms_topk = post_nms_topk_test
         self.bbox_reg_weights = tuple(bbox_reg_weights)
-        n_lvl = len(self.in_features)
-        strides = list(strides)
+        # one anchor level per branch under MRRP; with a single test branch
+        # only the first level's sizes are used, as in the JAX package
+        n_lvl = len(self.in_features) * (mrrp_num_branch if mrrp_on else 1)
+        strides = list(strides) * (mrrp_num_branch if mrrp_on else 1)
         self.anchor_generator = AnchorGenerator(
             sizes=list(anchor_sizes), aspect_ratios=list(anchor_aspect_ratios),
             strides=strides[:n_lvl] if len(strides) >= n_lvl else strides * n_lvl,
@@ -68,6 +81,8 @@ class WSOVODRPN_V2(nn.Module):
 
     def forward(self, features: Dict[str, torch.Tensor], image_sizes: torch.Tensor) -> Instances:
         feats = [features[f] for f in self.in_features]
+        if self.mrrp_on:
+            feats = [c for f in feats for c in torch.chunk(f, self.n_branch, dim=0)]
         logits_l, deltas_l = self.rpn_head(feats)
         grid_sizes = [(f.shape[1], f.shape[2]) for f in feats]
         anchors_l = self.anchor_generator.grid_anchors(grid_sizes, feats[0].device)
@@ -77,6 +92,11 @@ class WSOVODRPN_V2(nn.Module):
             flat_logits.append(lg.reshape(b, -1))  # position-major, anchor-minor
             dl = dl.reshape(b, -1, 4).float()
             proposals_l.append(apply_deltas(dl, anchors[None], weights=self.bbox_reg_weights))
+        if self.mrrp_on:
+            return find_top_rpn_proposals_group(
+                proposals_l, flat_logits, image_sizes, self.rpn_head.num_anchors,
+                self.nms_thresh, self.pre_nms_topk, self.post_nms_topk, self.min_box_size,
+            )
         return find_top_rpn_proposals(
             proposals_l, flat_logits, image_sizes, self.nms_thresh,
             self.pre_nms_topk, self.post_nms_topk, self.min_box_size,
@@ -97,4 +117,7 @@ def build_proposal_generator(cfg, in_channels: int, strides: Sequence[int]) -> W
         pre_nms_topk_test=rpn.PRE_NMS_TOPK_TEST,
         post_nms_topk_test=rpn.POST_NMS_TOPK_TEST,
         bbox_reg_weights=tuple(rpn.BBOX_REG_WEIGHTS),
+        mrrp_on=cfg.MODEL.MRRP.MRRP_ON,
+        mrrp_num_branch=cfg.MODEL.MRRP.NUM_BRANCH,
+        mrrp_test_all=cfg.MODEL.MRRP.TEST_BRANCH_IDX == -1,
     )

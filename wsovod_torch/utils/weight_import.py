@@ -7,7 +7,8 @@ weight``, ``roi_heads.box_head.fc1.weight`` as ``[out, c*h*w]``,
 ``data_aware_head.datasets_feat.weight``,
 ``proposal_generator.rpn_head.conv.weight``, ...), so the same ``state_dict``
 loader takes a reference WSOVOD checkpoint. Heads the port has no module for
-yet (the training-only object miner) are left out.
+yet (the training-only object miner) are left out. An MRRP model's tree has
+the same names: its branches share the stage's weights.
 """
 
 from __future__ import annotations

@@ -32,7 +32,30 @@ Phases, in order; any failure exits nonzero before the last line is printed:
    Prints images/s, the per-stage wall times, peak memory, and the device's
    busy share and top device times of one batch under ``torch.profiler``
    (trace and kernel table in ``profiles/``).
-6. The card line, one JSON line of kernel records (with each kernel's bound
+6. The gated ROIPool's backward kernel against its plain version at the
+   training shape (res5 ``[4, 100, 152, 2048]`` of B=4 800x1216 images,
+   5024 ROIs per image from the same box mix plus edge rows, a post-ReLU map
+   on a 0.25 grid so bins tie, gate-0 rows), bfloat16 and float32, both
+   cotangents: one chunk at full N and every chunk at a reduced N, to float
+   tolerance (float32 atomics); its time, the plain version's and the bound.
+7. The ``train-plain`` slice: ``WSOVODTrainer`` on ``WSOVOD_WSR_50_DC5_1x.yaml``
+   at full width (``FREEZE_AT`` 5 as shipped, BBOX_REFINE off for want of a
+   SAM checkpoint, the recipe scaled to one card: ``BASE_LR`` 0.0025,
+   ``ITER_SIZE`` 4), B=4 synthetic 800x1216 images with 1-4 image-level
+   classes, 4000 SAM + 1024 RPN proposals, 8 iterations (2 updates). Checks:
+   every loss present and finite on the first and last iteration; frozen
+   parameters bit-identical, every trainable one updated (nonzero momentum)
+   and the DAN's weights changed; the pool kernel
+   launched 4 times per iteration and its backward never (counts set to 0
+   just before ``train()`` and read just after); the final checkpoint
+   resumes the step, the parameters and the momentum bit for bit. Then ms
+   per iteration split into forward / backward / optimizer (forward also
+   into backbone / rpn / pool+fc1 / heads+mining+losses), images/s, peak
+   memory and the busy share of one profiled iteration.
+8. The ``train-res5`` slice: the same with ``FREEZE_AT`` 4 for 4 iterations
+   (1 update): res5's weights change and the backward kernel launches 4
+   times per iteration.
+9. The card line, one JSON line of kernel records (with each kernel's bound
    on this card computed from this run's inputs), and the result line.
 
 It imports no JAX and nothing of ``wsovod_tpu``.
@@ -41,7 +64,9 @@ It imports no JAX and nothing of ``wsovod_tpu``.
 from __future__ import annotations
 
 import json
+import math
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -59,7 +84,10 @@ N_BRANCH = 3  # MRRP branches at test
 C_TAKE = 512
 N_CHUNKS = FEAT[3] // C_TAKE
 N_BATCHES = 3  # timed batches of B images, per slice
-REDUCED_N = 256  # ROIs per image where every chunk is checked against the plain loop pool
+REDUCED_N = 256  # ROIs per image where every chunk is checked against the plain pools
+TB, TH, TW = 4, 800, 1216  # training: images per iteration and their size
+TRAIN_FEAT = (TB, 100, 152, 2048)  # res5 at stride 8
+TRAIN_ITERS, RES5_ITERS = 8, 4  # iterations of the two train slices (ITER_SIZE 4)
 PROFILE_DIR = os.path.join(REPO, "profiles")  # git-ignored
 # NVIDIA H100 SXM data sheet: HBM rate, and the float32 rate outside the
 # tensor cores (the pool kernels compare in float32)
@@ -87,18 +115,18 @@ def box_mix(rng, b, s, w=W, h=H):
     return boxes.astype(np.float32)
 
 
-def pool_inputs(rng):
+def pool_inputs(rng, b=B, w=W, h=H):
     """The slice's ROIs per image with edge rows, and the
     ``(objectness+1)*valid`` gate; invalid rows zeroed."""
-    rois = box_mix(rng, B, N_ROIS)
-    rois[:, 0] = [W - 40, H - 100, W + 160, H + 240]  # overhangs right and bottom
+    rois = box_mix(rng, b, N_ROIS, w, h)
+    rois[:, 0] = [w - 40, h - 100, w + 160, h + 240]  # overhangs right and bottom
     rois[:, 1] = [-60, -30, 200, 150]  # overhangs left and top
     rois[:, 2] = [500, 400, 300, 200]  # degenerate: x2 < x1, y2 < y1
     rois[:, 3] = [4, 12, 100, 60]  # .5 boundaries at stride 8
     rois[:, 4] = [20, 28, 60, 68]  # outer box on .5 boundaries
-    valid = rng.rand(B, N_ROIS) > 0.1
+    valid = rng.rand(b, N_ROIS) > 0.1
     valid[:, :5] = True
-    gate = ((rng.rand(B, N_ROIS) + 1.0) * valid).astype(np.float32)
+    gate = ((rng.rand(b, N_ROIS) + 1.0) * valid).astype(np.float32)
     rois = np.where(valid[..., None], rois, 0.0).astype(np.float32)
     return rois, gate
 
@@ -453,6 +481,284 @@ def run_slice(torch, dev, rp, tag, config, emb):
     return launches, max_err
 
 
+def phase_bwd_kernel(torch, dev, rp):
+    """The gated ROIPool's backward kernel vs plain at the training shape.
+    Tolerance: the kernel adds the feature cotangent with float32 atomics
+    in a varying order, so |kernel - plain| <= rtol |plain| + 1e-5 max
+    |plain| with rtol 1e-5 (float32) or one bfloat16 step, 2**-7; the gate
+    cotangent (a block sum in another order) rtol 1e-4."""
+    rois, gate = pool_inputs(np.random.RandomState(2), TB, TW, TH)
+    rois_t, gate_t = torch.from_numpy(rois).to(dev), torch.from_numpy(gate).to(dev)
+    g = torch.Generator(device=dev).manual_seed(2)
+    base = torch.round(torch.relu(torch.randn(TRAIN_FEAT, generator=g, device=dev)) * 4) / 4
+    cot = torch.randn((TB, N_ROIS, 7, 7, C_TAKE), generator=g, device=dev)
+    n = REDUCED_N
+    max_err, times = 0.0, {}
+
+    def check(feat, cot_, rois_, gate_, c_base, rtol, what, timed_plain=False):
+        nonlocal max_err
+        out = rp.roi_pool_gated(feat, rois_, gate_, c_base, C_TAKE, 7, 0.125)
+        got_f, got_g = rp.roi_pool_gated_bwd(feat, rois_, gate_, out, cot_, c_base, C_TAKE, 7, 0.125)
+        (want_f, _), t = timed(lambda: rp.roi_pool_gated_bwd_plain(
+            feat, rois_, gate_, None, cot_, c_base, C_TAKE, 7, 0.125, need_gate=False,
+            max_elems=1 << 28))
+        _, want_g = rp.roi_pool_gated_bwd_plain(feat, rois_, gate_, out, cot_, c_base, C_TAKE, 7,
+                                                0.125, need_feat=False)
+        err = (got_f.float() - want_f.float()).abs()
+        max_err = max(max_err, err.max().item())
+        scale = want_f.float().abs().max()
+        if not (scale > 0 and (err <= rtol * want_f.float().abs() + 1e-5 * scale).all()):
+            raise AssertionError(f"roi_pool_gated_bwd g_feat != plain ({what}): max |err| "
+                                 f"{err.max().item()}, max |plain| {scale.item()}")
+        gerr = (got_g - want_g).abs()
+        if not (gerr <= 1e-4 * want_g.abs() + 1e-4 * want_g.abs().max()).all():
+            raise AssertionError(f"roi_pool_gated_bwd g_gate != plain ({what}): max |err| "
+                                 f"{gerr.max().item()}")
+        if timed_plain:
+            times["plain_ms"] = t
+
+    for dtype, rtol in ((torch.bfloat16, 2.0 ** -7), (torch.float32, 1e-5)):
+        feat, cot_d = base.to(dtype).contiguous(), cot.to(dtype)
+        name = str(dtype)[6:]
+        check(feat, cot_d, rois_t, gate_t, C_TAKE, rtol, f"{name}, full N",
+              timed_plain=dtype == torch.bfloat16)
+        for c_base in range(0, TRAIN_FEAT[3], C_TAKE):
+            check(feat, cot_d[:, :n].contiguous(), rois_t[:, :n].contiguous(),
+                  gate_t[:, :n].contiguous(), c_base, rtol, f"{name}, {n} ROIs, c_base {c_base}")
+        if dtype == torch.bfloat16:  # the training path's call: the feature cotangent only
+            times["ms"] = cuda_ms(lambda: rp.roi_pool_gated_bwd(
+                feat, rois_t, gate_t, None, cot_d, C_TAKE, C_TAKE, 7, 0.125, need_gate=False), 10)
+        log(f"roi_pool_gated_bwd ~= plain, {name}: {N_ROIS} ROIs on one chunk, {n} ROIs on chunks "
+            f"{list(range(0, TRAIN_FEAT[3], C_TAKE))}, both cotangents (rtol {rtol:g})")
+    # least time of the training call: read g, the feature chunk, rois and
+    # gate once, write the float32 scratch once; a max and a tie test per bin
+    # pixel and channel
+    region = rp.round_region(rois_t, 0.125)
+    pixels = int(bin_pixels(rp, region, None, 7, TRAIN_FEAT[1], TRAIN_FEAT[2]).sum()) * C_TAKE
+    out_elems = TB * N_ROIS * 49 * C_TAKE
+    chunk_elems = TB * TRAIN_FEAT[1] * TRAIN_FEAT[2] * C_TAKE
+    in_bytes = out_elems * 2 + chunk_elems * 2 + rois_t.numel() * 4 + gate_t.numel() * 4
+    bound_ms, bound_by = bound(2 * pixels, out_elems, in_bytes, chunk_elems * 4)
+    log(f"roi_pool_gated_bwd bf16 {list(TRAIN_FEAT)} x {N_ROIS} ROIs, one 512-channel chunk, "
+        f"feature cotangent: kernel {times['ms']:.3f} ms, plain {times['plain_ms']:.3f} ms, "
+        f"bound {bound_ms:.3f} ms ({bound_by}: {(in_bytes + chunk_elems * 4) / 1e6:.1f} MB, "
+        f"{2 * pixels / 1e9:.3f} G compares)")
+    return {"max_abs_err": max_err, "ms": times["ms"], "plain_ms": times["plain_ms"],
+            "bound_ms": bound_ms, "bound_by": bound_by}
+
+
+def train_batches(n, seed):
+    """``n`` synthetic training batches: B=4 800x1216 images, 4000 SAM
+    proposals each, 1-4 distinct image-level classes of 80 per image."""
+    rng = np.random.RandomState(seed)
+    out = []
+    for _ in range(n):
+        classes = np.stack([rng.choice(80, 4, replace=False) for _ in range(TB)]).astype(np.int32)
+        out.append({
+            "images": rng.uniform(0, 255, (TB, TH, TW, 3)).astype(np.float32),
+            "image_sizes": np.array([[TH, TW]] * TB, np.int32),
+            "sam_boxes": box_mix(rng, TB, S, TW, TH),
+            "sam_scores": rng.uniform(0.3, 1.0, (TB, S)).astype(np.float32),
+            "sam_valid": np.ones((TB, S), bool),
+            "gt_classes": classes,
+            "gt_valid": np.arange(4)[None, :] < rng.randint(1, 5, (TB, 1)),
+        })
+    return out
+
+
+LOSSES = ("loss_cls_object_mining", "loss_cls_r0", "loss_box_reg_r0", "loss_rpn_cls",
+          "loss_rpn_loc")
+
+
+def train_split(torch, trainer, batches, emb, tag):
+    """Per-phase times of one update's worth of iterations (synchronised
+    between phases), then one forward split by stage with synchronising
+    hooks, then one profiled iteration (trace and kernel table to
+    ``profiles/``); returns the numbers."""
+    step = trainer.step
+    fwd, bwd, opt = [], [], []
+    for batch in batches[:step.iter_size]:
+        b = trainer.device_batch(batch)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses = step.forward(b, emb)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        step.backward(losses)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        step.update()
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        fwd.append(t1 - t0)
+        bwd.append(t2 - t1)
+        opt.append(t3 - t2)
+        if not all(math.isfinite(losses[k].item()) for k in LOSSES):
+            raise AssertionError(f"non-finite losses {losses}")
+    model = trainer.model
+    stages = {"backbone": model.backbone, "rpn": model.proposal_generator,
+              "pool": model.roi_heads.pooler, "fc1": model.roi_heads.box_head.fc1}
+    acc, t_in, handles = {k: 0.0 for k in stages}, {}, []
+    for name, mod in stages.items():
+        def pre(m, args, name=name):
+            torch.cuda.synchronize()
+            t_in[name] = time.perf_counter()
+
+        def post(m, args, out, name=name):
+            torch.cuda.synchronize()
+            acc[name] += time.perf_counter() - t_in[name]
+
+        handles += [mod.register_forward_pre_hook(pre), mod.register_forward_hook(post)]
+    b = trainer.device_batch(batches[0])
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses = step.forward(b, emb)
+        torch.cuda.synchronize()
+        total = time.perf_counter() - t0
+    finally:
+        for h in handles:
+            h.remove()
+    del losses
+    sub = {"backbone": acc["backbone"], "rpn": acc["rpn"], "pool+fc1": acc["pool"] + acc["fc1"]}
+    sub["heads+mining+losses"] = total - sum(sub.values())
+
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step.backward(step.forward(b, emb))
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    kernels = [e for e in prof.events() if e.device_type.name == "CUDA"]
+    busy_ms = sum(e.time_range.elapsed_us() for e in kernels) / 1e3
+    step.optimizer.zero_grad(set_to_none=True)  # the profiled iteration's gradients are dropped
+    events = prof.key_averages()
+    dev_attr = "device_time_total" if hasattr(events[0], "device_time_total") else "cuda_time_total"
+    os.makedirs(PROFILE_DIR, exist_ok=True)
+    prof.export_chrome_trace(os.path.join(PROFILE_DIR, f"{tag}_trace.json"))
+    with open(os.path.join(PROFILE_DIR, f"{tag}_kernels.txt"), "w") as f:
+        f.write(events.table(sort_by=dev_attr, row_limit=60))
+    for e in sorted(events, key=lambda e: getattr(e, dev_attr), reverse=True)[:12]:
+        log(f"  {getattr(e, dev_attr) / 1e3:10.3f} ms  x{e.count:<6d} {e.key[:90]}")
+    ms = lambda xs: 1e3 * sum(xs) / len(xs)
+    return {"forward_ms": ms(fwd), "backward_ms": ms(bwd), "optimizer_ms_per_update": 1e3 * max(opt),
+            "ms_per_iteration": ms([a + b_ + c for a, b_, c in zip(fwd, bwd, opt)]),
+            "forward_split_ms": {k: 1e3 * v for k, v in sub.items()},
+            "profiled_iteration_ms": wall_ms, "profiled_device_ms": busy_ms,
+            "busy_share": busy_ms / wall_ms}
+
+
+def run_train(torch, dev, rp, tag, freeze_at, iters, emb, resume_check):
+    """Drive ``WSOVODTrainer.train()`` for ``iters`` iterations and check it
+    (see the module docstring); returns ``(pool launches, backward
+    launches)``."""
+    from wsovod_torch import get_cfg
+    from wsovod_torch.engine.trainer import WSOVODTrainer
+
+    cfg = get_cfg()
+    cfg.merge_from_file(PLAIN_CONFIG)
+    cfg.TEST.AUG.ENABLED = False
+    cfg.TPU.COMPUTE_DTYPE = "bfloat16"
+    cfg.MODEL.WEIGHTS = ""  # seeded random weights
+    cfg.MODEL.BACKBONE.FREEZE_AT = freeze_at
+    cfg.SOLVER.MAX_ITER = iters
+    cfg.SOLVER.CHECKPOINT_PERIOD = 10 ** 9
+    cfg.SEED = 0
+    out_dir = os.path.join(PROFILE_DIR, f"{tag}_output")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    cfg.OUTPUT_DIR = out_dir
+    batches = train_batches(iters, seed=3)
+    t0 = time.perf_counter()
+    trainer = WSOVODTrainer(cfg, iter(batches), embeddings=emb, device=dev)
+    tc = trainer.cfg
+    if (tc.WSOVOD.ITER_SIZE, tc.SOLVER.BASE_LR, tc.WSOVOD.BBOX_REFINE.ENABLE) != (4, 0.0025, False):
+        raise AssertionError(f"{tag}: ITER_SIZE {tc.WSOVOD.ITER_SIZE}, BASE_LR {tc.SOLVER.BASE_LR}, "
+                             f"BBOX_REFINE {tc.WSOVOD.BBOX_REFINE.ENABLE}")
+    model = trainer.model
+    log(f"{tag} trainer: {os.path.basename(PLAIN_CONFIG)}, FREEZE_AT {freeze_at}, "
+        f"{sum(p.numel() for p in model.parameters() if p.requires_grad) / 1e6:.3f}M trainable of "
+        f"{sum(p.numel() for p in model.parameters()) / 1e6:.3f}M parameters, built in "
+        f"{time.perf_counter() - t0:.3f} s")
+    before = {n: p.detach().clone() for n, p in model.named_parameters()}
+    torch.cuda.reset_peak_memory_stats(dev)
+    rp.LAUNCHES = rp.BWD_LAUNCHES = rp.LOOP_LAUNCHES = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    trainer.train()
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches, bwd_launches, loop = rp.LAUNCHES, rp.BWD_LAUNCHES, rp.LOOP_LAUNCHES
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    want_bwd = N_CHUNKS * iters if freeze_at <= 4 else 0
+    if (launches, bwd_launches, loop) != (N_CHUNKS * iters, want_bwd, 0):
+        raise AssertionError(f"{tag}: launches pool {launches}, backward {bwd_launches}, loop "
+                             f"{loop} (expected {N_CHUNKS * iters}, {want_bwd}, 0)")
+    with open(os.path.join(out_dir, "metrics.json")) as f:
+        records = [json.loads(line) for line in f]
+    if [r["iteration"] for r in records] != [0, iters - 1]:
+        raise AssertionError(f"{tag}: metrics of iterations {[r['iteration'] for r in records]}")
+    for r in records:
+        if not all(k in r and math.isfinite(r[k]) for k in LOSSES + ("grad_norm",)):
+            raise AssertionError(f"{tag}: losses missing or not finite: {r}")
+    # every trainable parameter was updated (nonzero momentum), and the DAN's
+    # weights (and res5's, where it trains) changed; other tensors' first
+    # updates, at the warmup rate (2.5e-6), can be below their float32
+    # resolution. The miner's det bias has a zero gradient (a softmax over
+    # proposals ignores a shift).
+    state = trainer.step.optimizer.state
+    must_move = {"roi_heads.box_head.fc1.weight", "roi_heads.box_head.fc2.weight"}
+    changed = 0
+    for n, p in model.named_parameters():
+        same = torch.equal(p, before[n])
+        if not p.requires_grad:
+            if not same:
+                raise AssertionError(f"{tag}: frozen parameter {n} changed")
+            continue
+        changed += not same
+        buf = state.get(p, {}).get("momentum_buffer")
+        if n != "roi_heads.object_miner.det.bias" and (buf is None or not bool(buf.any())):
+            raise AssertionError(f"{tag}: trainable parameter {n} was not updated")
+        if same and (n in must_move or (".res5." in n and p.dim() >= 2)):
+            raise AssertionError(f"{tag}: trainable weight {n} did not move")
+    trainable = sum(p.requires_grad for p in model.parameters())
+    moved_res5 = [n for n, p in model.named_parameters() if ".res5." in n and p.requires_grad]
+    if (freeze_at <= 4) != bool(moved_res5):
+        raise AssertionError(f"{tag}: res5 trainable {moved_res5[:2]} with FREEZE_AT {freeze_at}")
+    del before
+    log(f"{tag} slice: train() ran {iters} iterations of B={TB} {TH}x{TW} ({iters // 4} updates) "
+        f"in {dt:.3f} s = {TB * iters / dt:.3f} images/s, the first iteration's set-up and the "
+        f"final checkpoint save included; pool launches {launches}, "
+        f"backward launches {bwd_launches}; losses finite at iterations 0 and {iters - 1} "
+        f"({', '.join(f'{k} {records[-1][k]:.4f}' for k in LOSSES)}); frozen parameters "
+        f"bit-identical, trainable ones updated, {changed} of {trainable} trainable tensors "
+        f"changed; peak memory {peak_gb:.3f} GB")
+    if resume_check:
+        resumed = WSOVODTrainer(cfg, iter(()), embeddings=emb, resume=True, device=dev)
+        if not resumed.resumed or resumed.step.step != iters or resumed.step.updates != iters // 4:
+            raise AssertionError(f"{tag}: resumed at step {resumed.step.step}")
+        for (n, p), q in zip(model.named_parameters(), resumed.model.parameters()):
+            s_, t_ = trainer.step.optimizer.state.get(p), resumed.step.optimizer.state.get(q)
+            if not torch.equal(p, q) or (s_ is None) != (t_ is None) or (
+                    s_ is not None and not torch.equal(s_["momentum_buffer"], t_["momentum_buffer"])):
+                raise AssertionError(f"{tag}: {n} or its momentum differs after resume")
+        del resumed
+        torch.cuda.empty_cache()
+        log(f"{tag} checkpoint: model_final resumed at iteration {iters}, parameters and momentum "
+            f"bit-identical")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    split = train_split(torch, trainer, batches, trainer.embeddings, tag)
+    log(f"{tag} split (ms, B={TB}, synchronised phases; optimizer once per {trainer.step.iter_size} "
+        f"iterations): " + json.dumps({k: (round(v, 3) if isinstance(v, float) else
+                                          {a: round(b, 3) for a, b in v.items()})
+                                      for k, v in split.items()}))
+    log(f"{tag} steady state: {TB * 1e3 / split['ms_per_iteration']:.3f} images/s")
+    del trainer, model
+    torch.cuda.empty_cache()
+    return launches, bwd_launches
+
+
 def main() -> int:
     import torch
 
@@ -473,7 +779,7 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     log(f"allow_tf32: matmul {torch.backends.cuda.matmul.allow_tf32}, "
         f"cudnn {torch.backends.cudnn.allow_tf32}")
-    sources = ["roi_pool_gated.cu", "roi_loop_pool_gated.cu"]
+    sources = ["roi_pool_gated.cu", "roi_loop_pool_gated.cu", "roi_pool_gated_bwd.cu"]
     t0 = time.perf_counter()
     libs = kernels.build_all(sources)
     for src in sources:
@@ -489,13 +795,23 @@ def main() -> int:
     records = {"roi_pool_gated": phase_pool_kernel(torch, dev, rp),
                "roi_loop_pool_gated": phase_loop_kernel(torch, dev, rp)}
 
-    # ---- 4., 5. the slices
+    # ---- 4., 5. the inference slices
     emb = torch.randn(80, 512, generator=torch.Generator().manual_seed(2)).to(dev)
+    by_path = {name: {} for name in ("roi_pool_gated", "roi_loop_pool_gated", "roi_pool_gated_bwd")}
     for name, tag, config in (("roi_pool_gated", "plain", PLAIN_CONFIG),
                               ("roi_loop_pool_gated", "mrrp", MRRP_CONFIG)):
         launches, err = run_slice(torch, dev, rp, tag, config, emb)
-        records[name]["launches"] = launches
+        records[name]["launches"] = by_path[name][tag] = launches
         records[name]["max_abs_err"] = max(records[name]["max_abs_err"], err)
+
+    # ---- 6. the backward kernel vs plain; 7., 8. the train slices
+    records["roi_pool_gated_bwd"] = phase_bwd_kernel(torch, dev, rp)
+    for tag, freeze_at, iters in (("train-plain", 5, TRAIN_ITERS), ("train-res5", 4, RES5_ITERS)):
+        launches, bwd = run_train(torch, dev, rp, tag, freeze_at, iters, emb,
+                                  resume_check=freeze_at == 5)
+        by_path["roi_pool_gated"][tag] = launches
+        by_path["roi_pool_gated_bwd"][tag] = bwd
+    records["roi_pool_gated_bwd"]["launches"] = by_path["roi_pool_gated_bwd"]["train-res5"]
 
     # ---- 6. result lines
     meta = {
@@ -503,15 +819,18 @@ def main() -> int:
                            "wsovod_tpu/ops/pallas/roi_pool_fused.py:1585"),
         "roi_loop_pool_gated": ("wsovod_torch/kernels/csrc/roi_loop_pool_gated.cu",
                                 "wsovod_tpu/ops/pallas/roi_pool_fused.py:1585"),
+        "roi_pool_gated_bwd": ("wsovod_torch/kernels/csrc/roi_pool_gated_bwd.cu",
+                               "wsovod_tpu/ops/pallas/roi_pool_fused.py:2146"),
     }
     log(card)
     log(json.dumps({"kernels": [{
         "name": name, "route": "cuda", "source": meta[name][0], "replaces": meta[name][1],
         "launches": r["launches"], "max_abs_err": r["max_abs_err"], "ms": r["ms"],
         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
-        # no single PyTorch call computes a gated RoIPool or ROILoopPool
-        # (and the card's host has no torchvision)
+        # no single PyTorch call computes a gated RoIPool, ROILoopPool or
+        # their backward (and the card's host has no torchvision)
         "library_ms": None,
+        "launches_by_path": by_path[name],
     } for name, r in records.items()]}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                            "count": torch.cuda.device_count()}}))

@@ -49,7 +49,7 @@ def _check_dan():
     want = np.asarray(jax.jit(jm.apply)({"params": params}, x))
     xt = torch.from_numpy(x)
     for c_take in (64, 16):
-        tm = DiscriminativeAdaptationNeck(64, 7, (32, 24), c_take=c_take)
+        tm = DiscriminativeAdaptationNeck(64, 7, (32, 24), c_take=c_take).eval()  # no dropout
         tm.load_state_dict({
             "fc1.weight": _t(fc1_weight_from_jax(params["fc1"]["kernel"])),
             "fc1.bias": _t(params["fc1"]["bias"]),

@@ -38,11 +38,13 @@ def _inputs(device, dtype, b=2, h=11, w=17, c=64, n=300, seed=0):
 
 
 def test_kernel_equals_plain(cuda):
-    """Both kernels bit-equal to their plain versions in both dtypes and on
-    an inner channel chunk, one launch counted per call; float16 and
+    """Both pool kernels bit-equal to their plain versions in both dtypes
+    and on an inner channel chunk, one launch counted per call; float16 and
     non-contiguous features are refused. The loop kernel at a medium size
-    (3 branch copies, 600 ROIs per image, routed), rows 1 and 3."""
+    (3 branch copies, 600 ROIs per image, routed), rows 1 and 3. The
+    backward kernel against its plain version to float tolerance."""
     _check_loop_kernel(cuda)
+    _check_backward_kernel(cuda)
     for dtype in (torch.bfloat16, torch.float32):
         feat, rois, gate = _inputs(cuda, dtype)
         for c_base, c_take in ((0, 64), (16, 32)):
@@ -59,6 +61,45 @@ def test_kernel_equals_plain(cuda):
     feat, rois, gate = _inputs(cuda, torch.bfloat16)
     with pytest.raises(ValueError):
         port.roi_pool_gated(feat.transpose(1, 2), rois, gate, 0, 64)
+
+
+def _check_backward_kernel(cuda):
+    """``roi_pool_gated_bwd`` against ``roi_pool_gated_bwd_plain`` on a
+    tie-heavy map (post-ReLU values on a 0.5 grid), both cotangents, both
+    dtypes, and through ``RoIPoolGatedFunction``. Tolerance: the kernel sums
+    the feature cotangent with float32 atomics in a varying order, so
+    |kernel - plain| <= rtol |plain| + 1e-5 max |plain|, rtol 1e-5 in
+    float32 and one bfloat16 step (2**-7) in bfloat16; the gate cotangent
+    (a block sum in another order) rtol 1e-4."""
+    for dtype, rtol in ((torch.float32, 1e-5), (torch.bfloat16, 2.0 ** -7)):
+        feat, rois, gate = _inputs(cuda, dtype)
+        feat = (torch.round(torch.relu(feat.float()) * 2) / 2).to(dtype).contiguous()
+        c_base, c_take = 16, 32
+        out = port.roi_pool_gated_plain(feat, rois, gate, c_base, c_take, 7, 0.125)
+        g = torch.randn(out.shape, generator=torch.Generator().manual_seed(2)).to(cuda, dtype)
+        before = port.BWD_LAUNCHES
+        got_f, got_g = port.roi_pool_gated_bwd(feat, rois, gate, out, g, c_base, c_take, 7, 0.125)
+        torch.cuda.synchronize()
+        assert port.BWD_LAUNCHES == before + 1
+        want_f, want_g = port.roi_pool_gated_bwd_plain(feat, rois, gate, out, g, c_base, c_take,
+                                                       7, 0.125)
+        scale = want_f.float().abs().max()
+        assert scale > 0
+        err = (got_f.float() - want_f.float()).abs()
+        assert (err <= rtol * want_f.float().abs() + 1e-5 * scale).all(), (dtype, err.max())
+        torch.testing.assert_close(got_g, want_g, rtol=1e-4, atol=1e-4 * want_g.abs().max())
+        only_gate = port.roi_pool_gated_bwd(feat, rois, gate, out, g, c_base, c_take, 7, 0.125,
+                                            need_feat=False)
+        assert only_gate[0] is None and torch.allclose(only_gate[1], got_g, rtol=1e-4, atol=1e-6)
+
+        leaf = feat.clone().requires_grad_(True)
+        before = (port.LAUNCHES, port.BWD_LAUNCHES)
+        y = port.RoIPoolGatedFunction.apply(leaf, rois, gate, c_base, c_take, 7, 0.125)
+        (y.float() * g.float()).sum().backward()
+        torch.cuda.synchronize()
+        assert (port.LAUNCHES, port.BWD_LAUNCHES) == (before[0] + 1, before[1] + 1)
+        err = (leaf.grad.float() - want_f.float()).abs()
+        assert (err <= rtol * want_f.float().abs() + 1e-5 * scale).all(), (dtype, err.max())
 
 
 def _check_loop_kernel(cuda):
@@ -129,3 +170,21 @@ def test_model_forward_on_cuda(cuda):
     torch.cuda.synchronize()
     assert port.LOOP_LAUNCHES == before + 1
     assert torch.isfinite(det.scores[det.valid]).all() and det.valid.any()
+
+    # a train step of the plain model with res5 trainable: one pool and one
+    # pool-backward launch per chunk, finite losses, res5 receives gradients
+    cfg.MODEL.MRRP.MRRP_ON = False
+    cfg.MODEL.ROI_BOX_HEAD.POOLER_TYPE = "ROIPool"
+    cfg.MODEL.ANCHOR_GENERATOR.SIZES = [[32, 64, 128, 256, 512]]
+    cfg.MODEL.BACKBONE.FREEZE_AT = 4
+    model = build_model(cfg, device=cuda, seed=0).train()
+    batch["gt_classes"] = torch.tensor([[1, 3, 0], [2, 0, 0]], device=cuda)
+    batch["gt_valid"] = torch.tensor([[True, True, False], [True, False, False]], device=cuda)
+    before = (port.LAUNCHES, port.BWD_LAUNCHES)
+    losses = model.forward_train(batch, emb, iteration=5,
+                                 generator=torch.Generator(device=cuda).manual_seed(0))
+    sum(losses.values()).backward()
+    torch.cuda.synchronize()
+    assert (port.LAUNCHES, port.BWD_LAUNCHES) == (before[0] + 1, before[1] + 1)
+    assert len(losses) == 5 and all(torch.isfinite(v) for v in losses.values()), losses
+    assert model.backbone.res5[0].conv1.weight.grad.abs().sum() > 0

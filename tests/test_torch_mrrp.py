@@ -112,7 +112,9 @@ def test_mrrp_inference_matches_jax():
     """All branches at test (``TEST_BRANCH_IDX -1``) and one (``1``): the
     backbone's branch concat, the RPN's group proposals with their
     ``level_ids``, the ROI heads on the JAX proposals, and the whole forward
-    with its top-5 detections."""
+    with its top-5 detections. Then the data-aware vector of a single-branch
+    batch of three images."""
+    _check_single_branch_batch_of_three()
     batch = make_batch(0)
     for idx, n_copies in ((-1, 3), (1, 1)):
         feats, rpn, daf, (det, probs, boxes, props) = jax_stages(0, MRRP_YAML, idx)
@@ -159,6 +161,28 @@ def test_mrrp_inference_matches_jax():
             np.testing.assert_allclose(tdet.scores[i].numpy()[top], det.scores[i][top], rtol=RTOL)
             np.testing.assert_allclose(tdet.boxes[i].numpy()[top], det.boxes[i][top],
                                        rtol=RTOL, atol=BOX_ATOL)
+
+
+def _check_single_branch_batch_of_three():
+    """``TEST_BRANCH_IDX 1`` at B=3: the feature's batch divides by
+    ``NUM_BRANCH``, so the JAX package takes it for a branch concat and
+    averages the three images into one data-aware vector
+    (``class_heads.py:106-116``, ROADMAP 3.3); the port does the same."""
+    jm, params = jax_reference(MRRP_YAML, 1)
+    tm = torch_model_from_jax(MRRP_YAML, 1)
+    batch = {k: torch.from_numpy(v) for k, v in make_batch(3, b=3).items()}
+    batch["image_sizes"][1] = torch.tensor([48, 40])
+    with torch.inference_mode():
+        feat = tm.backbone(tm._normalize(batch["images"]))["res5"]
+        got = tm._data_aware_features(feat, batch)
+    stride = batch["images"].shape[1] // feat.shape[1]
+    sizes = batch["image_sizes"].numpy() // stride
+    valid = ((np.arange(feat.shape[1])[None, :, None] < sizes[:, 0, None, None])
+             & (np.arange(feat.shape[2])[None, None, :] < sizes[:, 1, None, None]))
+    want = jm.apply(params, jnp.asarray(feat.numpy()), jnp.asarray(valid),
+                    method=lambda m, f, v: m.data_aware_head(f, pixel_valid=v))
+    assert feat.shape[0] == 3 and got.shape == want.shape == (1, 64)
+    np.testing.assert_allclose(got.numpy(), want, rtol=RTOL, atol=1e-6)
 
 
 def test_mrrp_weight_round_trip():

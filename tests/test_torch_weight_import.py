@@ -3,8 +3,9 @@
 * reference-named random blobs -> ``wsovod_tpu``'s ``import_wsovod_model``
   -> ``state_dict_from_jax`` come back bit-equal, and load into the port's
   model with ``strict=True``, whose ``state_dict`` gives them back again;
-* ``wsovod_torch`` imports and builds its models, plain and MRRP, with
-  ``jax``, ``flax`` and ``wsovod_tpu`` blocked from import;
+* ``wsovod_torch`` imports and builds its models, plain and MRRP, and its
+  trainer takes an iteration, with ``jax``, ``flax`` and ``wsovod_tpu``
+  blocked from import;
 * the port's own config tree equals the JAX package's apart from the four
   port defaults, before and after merging the YAMLs; the keys it refuses by
   name.
@@ -14,13 +15,11 @@ import os
 import subprocess
 import sys
 
-import jax
-import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
-from torch_port_common import MRRP_YAML, REPO, TINY_YAML, embeddings, make_batch, tiny_cfg
+from torch_port_common import MRRP_YAML, REPO, TINY_YAML, jax_reference, tiny_cfg
 from wsovod_tpu.utils.weight_import import import_wsovod_model
 from wsovod_torch import check_supported, get_cfg
 from wsovod_torch.models import build_model
@@ -28,14 +27,9 @@ from wsovod_torch.utils.weight_import import state_dict_from_jax
 
 
 def _template():
-    """Shapes of the JAX parameter tree (no compute: ``eval_shape``)."""
-    from wsovod_tpu.config import get_cfg as jax_get_cfg
-    from wsovod_tpu.models import build_model as jax_build_model
-
-    model = jax_build_model(tiny_cfg(jax_get_cfg()))
-    batch = {k: jnp.asarray(v) for k, v in make_batch().items()}
-    return jax.eval_shape(lambda: model.init({"params": jax.random.PRNGKey(0)}, batch,
-                                             train=False, embeddings=jnp.asarray(embeddings())))
+    """The JAX parameter tree of the tiny config, object miner included
+    (its training-mode ``init``)."""
+    return jax_reference()[1]
 
 
 def test_weight_import_round_trip():
@@ -94,6 +88,18 @@ for yaml in (TINY_YAML, MRRP_YAML):
     with torch.inference_mode():
         det, probs, boxes = model(batch, embeddings=torch.from_numpy(embeddings()))
     assert bool(det.valid.any())
+# the training modules: one iteration of the trainer
+import tempfile
+from wsovod_torch.engine.trainer import WSOVODTrainer
+cfg = tiny_cfg(wsovod_torch.get_cfg())
+cfg.MODEL.RPN.PRE_NMS_TOPK_TRAIN, cfg.MODEL.RPN.POST_NMS_TOPK_TRAIN = 64, 16
+cfg.SOLVER.MAX_ITER, cfg.MODEL.WEIGHTS = 1, ""
+with tempfile.TemporaryDirectory() as out:
+    cfg.OUTPUT_DIR = out
+    trainer = WSOVODTrainer(cfg, iter([make_batch(gt=True)]),
+                            embeddings=torch.from_numpy(embeddings()), device="cpu")
+    trainer.train()
+    assert trainer.step.step == 1
 bad = [m for m in sys.modules
        if m.split(".")[0] in ("jax", "jaxlib", "flax", "wsovod_tpu") and sys.modules[m] is not None]
 assert not bad, bad

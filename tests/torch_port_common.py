@@ -8,6 +8,11 @@ import functools
 import os
 
 import numpy as np
+import torch
+
+# The suite runs in several worker processes (pytest-xdist); at these tiny
+# shapes torch's intra-op threads in every worker only contend for the cores.
+torch.set_num_threads(1)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TINY_YAML = os.path.join(REPO, "configs", "COCO-Detection", "WSOVOD_WSR_18_DC5_1x.yaml")
@@ -35,19 +40,24 @@ def tiny_cfg(cfg, yaml: str = TINY_YAML, test_branch_idx=None):
     return cfg
 
 
-def make_batch(seed: int = 0, b: int = 2, s: int = 12, size: int = 64):
+def make_batch(seed: int = 0, b: int = 2, s: int = 12, size: int = 64, gt: bool = False):
     """Synthetic images and SAM proposals (``tests/test_golden_forward.py``
-    recipe), numpy."""
+    recipe), numpy; with ``gt``, also the image-level supervision
+    ``gt_classes``/``gt_valid [B, 4]`` (1 to 4 valid instances per image)."""
     rng = np.random.RandomState(seed)
     boxes = rng.uniform(0, size * 0.6, (b, s, 2))
     boxes = np.concatenate([boxes, boxes + rng.uniform(8, 20, (b, s, 2))], -1)
-    return {
+    batch = {
         "images": rng.uniform(0, 255, (b, size, size, 3)).astype(np.float32),
         "image_sizes": np.array([[size, size]] * b, np.int32),
         "sam_boxes": boxes.astype(np.float32),
         "sam_scores": rng.uniform(0.5, 1, (b, s)).astype(np.float32),
         "sam_valid": np.ones((b, s), bool),
     }
+    if gt:
+        batch["gt_classes"] = rng.randint(0, NUM_CLASSES, (b, 4)).astype(np.int32)
+        batch["gt_valid"] = np.arange(4)[None, :] < rng.randint(1, 5, (b, 1))
+    return batch
 
 
 def embeddings() -> np.ndarray:
@@ -101,7 +111,10 @@ def random_params(shapes, seed: int = 0):
 @functools.lru_cache(maxsize=None)
 def jax_reference(yaml: str = TINY_YAML, test_branch_idx=None):
     """``(model, params)`` of the JAX package on the tiny config (``yaml``
-    and ``test_branch_idx`` as ``tiny_cfg``), with ``random_params``."""
+    and ``test_branch_idx`` as ``tiny_cfg``), with ``random_params`` on the
+    parameter tree of a training-mode ``init`` (the object miner's
+    parameters exist only there; they come last, so the other leaves' draws
+    are those of the inference tree)."""
     import jax
     import jax.numpy as jnp
 
@@ -109,10 +122,12 @@ def jax_reference(yaml: str = TINY_YAML, test_branch_idx=None):
     from wsovod_tpu.models import build_model
 
     model = build_model(tiny_cfg(get_cfg(), yaml, test_branch_idx))
-    batch = {k: jnp.asarray(v) for k, v in make_batch().items()}
+    batch = {k: jnp.asarray(v) for k, v in make_batch(gt=True).items()}
     emb = jnp.asarray(embeddings())
     shapes = jax.eval_shape(
-        lambda: model.init({"params": jax.random.PRNGKey(0)}, batch, train=False, embeddings=emb)
+        lambda: model.init({"params": jax.random.PRNGKey(0), "dropout": jax.random.PRNGKey(1)},
+                           batch, train=True, iteration=jnp.asarray(1),
+                           rng=jax.random.PRNGKey(2), embeddings=emb)
     )
     return model, random_params(shapes)
 

@@ -319,8 +319,8 @@ def _refuse(key: str, value, why: str):
 def check_supported(cfg: CN) -> None:
     """Raise ``NotImplementedError`` naming the first key that asks for a
     path the port does not have. Keys that only act during training (solver,
-    sampling, mining, ``WSOVOD.BBOX_REFINE``) are not checked: the reference
-    ignores them at inference too.
+    sampling, mining, ``WSOVOD.BBOX_REFINE``) are checked by
+    ``check_train_supported``: the reference ignores them at inference too.
 
     MRRP is ported for the WSR ResNet with the multi-branch stage at res5 and
     the ``ROILoopPool`` pooler, with all branches at test
@@ -386,6 +386,34 @@ def check_supported(cfg: CN) -> None:
          "test-time augmentation"),
         ("TEST.EVAL_PROPOSALS", cfg.TEST.EVAL_PROPOSALS,
          not cfg.TEST.EVAL_PROPOSALS, "proposal-recall evaluation"),
+    ]
+    for key, value, ok, why in checks:
+        if not ok:
+            _refuse(key, value, why)
+
+
+def check_train_supported(cfg: CN) -> None:
+    """``check_supported`` plus the keys that only act during training:
+    raise ``NotImplementedError`` naming the first one that asks for a path
+    the port's trainer does not have. Training is ported for the plain
+    (non-MRRP) detector with the ``ROIPool`` pooler. ``WSOVOD.BBOX_REFINE``
+    is the trainer's to handle (``engine/trainer.py``)."""
+    check_supported(cfg)
+    m = cfg.MODEL
+    ir = cfg.WSOVOD.INSTANCE_REFINEMENT
+    checks = [
+        ("MODEL.MRRP.MRRP_ON", m.MRRP.MRRP_ON, not m.MRRP.MRRP_ON, "MRRP training"),
+        ("MODEL.ROI_BOX_HEAD.POOLER_TYPE", m.ROI_BOX_HEAD.POOLER_TYPE,
+         m.ROI_BOX_HEAD.POOLER_TYPE == "ROIPool", "training with ROILoopPool"),
+        ("WSOVOD.INSTANCE_REFINEMENT.REFINE_MIST", ir.REFINE_MIST, not ir.REFINE_MIST,
+         "MIST mining"),
+        ("MODEL.ROI_BOX_HEAD.BBOX_REG_LOSS_TYPE", m.ROI_BOX_HEAD.BBOX_REG_LOSS_TYPE,
+         m.ROI_BOX_HEAD.BBOX_REG_LOSS_TYPE in ("smooth_l1", "smooth_l1_weighted"),
+         "IoU box losses"),
+        ("SOLVER.OPTIMIZER", cfg.SOLVER.OPTIMIZER, cfg.SOLVER.OPTIMIZER.upper() == "SGD",
+         "optimizers other than SGD"),
+        ("SOLVER.LR_SCHEDULER_NAME", cfg.SOLVER.LR_SCHEDULER_NAME,
+         cfg.SOLVER.LR_SCHEDULER_NAME == "WarmupMultiStepLR", "other LR schedules"),
     ]
     for key, value, ok, why in checks:
         if not ok:

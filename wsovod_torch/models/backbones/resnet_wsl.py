@@ -142,6 +142,15 @@ class WSRResNet(nn.Module):
             out_ch *= 2
             bottleneck *= 2
 
+    def freeze(self, freeze_at: int) -> None:
+        """Turn ``requires_grad`` off for the stem (stage 1) and the stages
+        ``res2``.. up to ``freeze_at`` (d2's convention; every shipped config
+        freezes all five). The frozen-BN statistics are buffers already."""
+        for idx, name in enumerate(["stem"] + self.stage_names, start=1):
+            if idx <= freeze_at:
+                for p in getattr(self, name).parameters():
+                    p.requires_grad_(False)
+
     def output_channels(self) -> Dict[str, int]:
         c = self.res2_out_channels
         out = {}

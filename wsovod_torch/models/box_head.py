@@ -5,8 +5,12 @@ fc1 (``[P*P*C] -> 4096``) is applied one pooled channel chunk at a time, as
 the JAX package's ``ChunkedDenseGeneral``: each chunk ``[B, N, P, P, c]``
 contributes a partial product, the partials are summed in float32, and the
 full ``[B, N, P, P, C]`` tensor (about 1 GB per image at the COCO proposal
-budget) never exists. fc2 is a plain ``Linear``. Dropout is a training
-matter and is not here.
+budget) never exists. fc2 is a plain ``Linear``. In training each FC's
+ReLU output goes through Dropout(0.5), and the pooler's objectness gate
+arrives as a row gate on fc1's accumulated output, before the bias (fc1 is
+linear and the gate nonnegative, so this equals gating the pooled input;
+``wsovod_tpu/models/box_head.py:57-64``): the gate's gradient then never
+needs the pooled chunks.
 
 fc1 is stored chunk-major inside (``[F, C/c, P, P, c]`` flattened), so each
 chunk's weight is a strided ``[F, P*P*c]`` view in the pooled chunk's
@@ -17,7 +21,7 @@ copy per chunk). Its ``state_dict`` keeps the reference torch layout
 
 from __future__ import annotations
 
-from typing import Iterable
+from typing import Iterable, Optional
 
 import torch
 import torch.nn.functional as F
@@ -28,20 +32,49 @@ from .layers import Linear
 _MM_OUT_DTYPE = "dtype" in torch.ops.aten.mm.overloads()
 
 
-def matmul_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """``a @ b`` (both in one dtype) accumulated and returned in float32.
-    bfloat16 operands on CUDA use ``torch.mm(..., out_dtype=float32)`` where
-    this PyTorch has it; otherwise each bf16 product is rounded to bf16 and
-    widened (adds at most one bf16 rounding per partial, about 2**-8
-    relative). On the CPU, bf16 operands are widened first: exact products,
-    float32 sums."""
+def _mm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` of two bf16 CUDA matrices accumulated in float32:
+    ``torch.mm(..., out_dtype=float32)`` where this PyTorch has it, else the
+    bf16 product widened (one more bf16 rounding, about 2**-8 relative)."""
+    if _MM_OUT_DTYPE:
+        return torch.mm(a, b, out_dtype=torch.float32)
+    return torch.mm(a, b).float()
+
+
+class _LinearF32Out(torch.autograd.Function):
+    """``a [M, K] @ w [F, K].T`` with bf16 operands on the card, summed and
+    returned in float32 (``w`` is a float32 parameter view, cast inside, so
+    no bf16 copy of it outlives the call). Backward: ``dA = dY @ W`` in
+    bf16, ``dW = dY.T @ A`` accumulated in float32; it keeps ``a`` only if
+    ``w`` needs a gradient and ``w`` only if ``a`` does."""
+
+    @staticmethod
+    def forward(ctx, a, w):
+        ctx.save_for_backward(a if ctx.needs_input_grad[1] else None,
+                              w if ctx.needs_input_grad[0] else None)
+        return _mm_f32(a, w.to(a.dtype).t())
+
+    @staticmethod
+    def backward(ctx, gy):
+        a, w = ctx.saved_tensors
+        da = dw = None
+        if ctx.needs_input_grad[0]:
+            da = torch.mm(gy.to(torch.bfloat16), w.to(torch.bfloat16))
+        if ctx.needs_input_grad[1]:
+            dw = _mm_f32(gy.to(a.dtype).t(), a)
+        return da, dw
+
+
+def matmul_f32(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``a @ w.T`` for ``a [M, K]`` in the compute dtype and a float32
+    weight ``w [F, K]``, accumulated and returned in float32. bf16 on CUDA:
+    ``_LinearF32Out``. On the CPU, bf16 operands are widened first: exact
+    products, float32 sums."""
     if a.dtype == torch.float32:
-        return torch.mm(a, b)
+        return torch.mm(a, w.t())
     if a.device.type == "cuda":
-        if _MM_OUT_DTYPE:
-            return torch.mm(a, b, out_dtype=torch.float32)
-        return torch.mm(a, b).float()
-    return torch.mm(a.float(), b.float())
+        return _LinearF32Out.apply(a, w)
+    return torch.mm(a.float(), w.to(a.dtype).float().t())
 
 
 class ChunkedLinear(nn.Module):
@@ -84,17 +117,17 @@ class ChunkedLinear(nn.Module):
         ``[..., F]``, without the bias."""
         lead = chunk.shape[:-3]
         a = chunk.reshape(-1, self.p * self.p * self.c_take)
-        w = self.chunk_weight(k).to(chunk.dtype)  # cast before the transpose view
-        return matmul_f32(a, w.t()).reshape(lead + (self.f,))
+        return matmul_f32(a, self.chunk_weight(k)).reshape(lead + (self.f,))
 
 
 class DiscriminativeAdaptationNeck(nn.Module):
     def __init__(self, in_channels: int, pooled: int, fc_dims=(4096, 4096), c_take: int = 512,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, dropout: float = 0.5):
         super().__init__()
         if len(fc_dims) != 2:
             raise ValueError(f"the port's DAN has fc1 and fc2; got DAN_DIM {list(fc_dims)}")
         self.dtype = dtype
+        self.dropout = dropout
         self.fc1 = ChunkedLinear(in_channels, pooled, fc_dims[0], c_take)
         self.fc2 = Linear(fc_dims[0], fc_dims[1])
 
@@ -102,10 +135,21 @@ class DiscriminativeAdaptationNeck(nn.Module):
     def output_dim(self) -> int:
         return self.fc2.out_features
 
-    def forward(self, chunks: Iterable[torch.Tensor]) -> torch.Tensor:
+    def _drop(self, x: torch.Tensor, generator: Optional[torch.Generator]) -> torch.Tensor:
+        """Dropout in training (flax ``Dropout``: kept entries divided by the
+        keep probability), its mask drawn from ``generator``."""
+        if not self.training or self.dropout == 0.0:
+            return x
+        keep = 1.0 - self.dropout
+        mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+        return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype, device=x.device))
+
+    def forward(self, chunks: Iterable[torch.Tensor], row_gate: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """``chunks``: the pooled channel chunks in channel order (consumed
         lazily, one alive at a time) -> ``[B, N, fc_dims[-1]]`` in the compute
-        dtype."""
+        dtype. ``row_gate [B, N]`` scales fc1's accumulated output before the
+        bias; ``generator`` draws the training dropout masks."""
         acc = None
         n = 0
         for k, chunk in enumerate(chunks):
@@ -114,5 +158,7 @@ class DiscriminativeAdaptationNeck(nn.Module):
             n += 1
         if n != self.fc1.n_chunks:
             raise ValueError(f"DAN got {n} pooled chunks, fc1 expects {self.fc1.n_chunks}")
-        x = F.relu((acc + self.fc1.bias.float()).to(self.dtype))
-        return F.relu(self.fc2(x))
+        if row_gate is not None:
+            acc = acc * row_gate[..., None].float()
+        x = self._drop(F.relu((acc + self.fc1.bias.float()).to(self.dtype)), generator)
+        return self._drop(F.relu(self.fc2(x)), generator)

@@ -55,8 +55,10 @@ class DataAwareFeaturesHead(nn.Module):
     C//16) ReLU -> FC(-> prototypes) Tanh -> mixture of the ``[prototypes,
     features_dim]`` prototype embedding; added later to every ROI feature."""
 
-    def __init__(self, in_channels: int, prototype_num: int = 5, features_dim: int = 4096):
+    def __init__(self, in_channels: int, prototype_num: int = 5, features_dim: int = 4096,
+                 mrrp_num_branch: int = 0):
         super().__init__()
+        self.mrrp_num_branch = mrrp_num_branch
         self.linear1 = nn.Linear(in_channels, in_channels // 16)
         self.linear2 = nn.Linear(in_channels // 16, prototype_num)
         self.datasets_feat = nn.Embedding(prototype_num, features_dim)
@@ -67,15 +69,17 @@ class DataAwareFeaturesHead(nn.Module):
         the feature dtype, the dtype the reference's pooled vector has; the
         head then runs in float32 (the reference's dtype promotion).
 
-        An MRRP feature ``[n_br * B, H, W, C]`` (branch-major, ``B`` from
-        ``pixel_valid``) is first averaged over its branches and rounded to
-        the feature dtype (``class_heads.py:106-116`` of the JAX package,
-        which decides from ``NUM_BRANCH`` and the batch's divisibility and so
-        also averages a single-branch batch whose size divides by it; here
-        the image count decides)."""
-        if pixel_valid is not None and feature.shape[0] > pixel_valid.shape[0]:
-            b = pixel_valid.shape[0]
-            feature = feature.float().reshape((-1, b) + feature.shape[1:]).mean(dim=0).to(feature.dtype)
+        Under MRRP (``mrrp_num_branch`` > 0) a feature whose batch divides
+        by the branch count and is at least it is taken as the branch-major
+        concat ``[n_br * B, H, W, C]``, averaged over its branches and
+        rounded to the feature dtype; the pixel mask then applies only if
+        its batch still matches. This is the JAX package's rule
+        (``wsovod_tpu/models/class_heads.py:106-116``), kept on purpose: a
+        single-branch batch (``TEST_BRANCH_IDX >= 0``) of 3 images is
+        averaged into one vector there too."""
+        br = self.mrrp_num_branch
+        if br and feature.shape[0] % br == 0 and feature.shape[0] >= br:
+            feature = feature.float().reshape((br, -1) + feature.shape[1:]).mean(dim=0).to(feature.dtype)
         f = feature.float()
         if pixel_valid is not None and pixel_valid.shape[0] == feature.shape[0]:
             m = pixel_valid[..., None].float()

@@ -2,12 +2,15 @@
 the inference branches of ``wsovod_tpu/models/poolers.py``
 ``ROIPooler.fused_chunk_pool``, ``:171-186,571-607,801-833``).
 
-The pooler applies the WSOVOD objectness gate ``(objectness + 1) * valid``
-inside the pool kernel, zeroes invalid boxes, and hands the DAN one channel
-chunk of ``c_take`` channels at a time (512 where C is a multiple of 512,
-else all of C), so the ``[B, N, 7, 7, C]`` pooled tensor never exists in
-full. Each chunk is one call of this module, so a forward hook sees every
-chunk the model pools.
+The pooler applies a per-ROI gate inside the pool kernel, zeroes invalid
+boxes, and hands the DAN one channel chunk of ``c_take`` channels at a time
+(512 where C is a multiple of 512, else all of C), so the ``[B, N, 7, 7,
+C]`` pooled tensor never exists in full. At inference the gate is the WSOVOD
+objectness gate ``(objectness + 1) * valid``; in training it is the validity
+mask and the objectness gate moves to fc1's output (see ``roi_heads.py``).
+Each chunk is one call of this module, so a forward hook sees every chunk
+the model pools. ``ROIPool`` chunks go through ``RoIPoolGatedFunction``,
+whose backward is a kernel too.
 
 ``ROILoopPool`` pools only the ROI row (``rows=1``): at inference the frame
 and context rows feed nothing but the training-time miner (see
@@ -27,7 +30,7 @@ from typing import Iterator, Optional, Sequence
 import torch
 from torch import nn
 
-from ..ops.roi_pool import roi_loop_pool_gated, roi_pool_gated
+from ..ops.roi_pool import RoIPoolGatedFunction, roi_loop_pool_gated
 
 
 def chunk_width(channels: int) -> int:
@@ -48,21 +51,23 @@ class ROIPooler(nn.Module):
 
     def forward(self, feat: torch.Tensor, boxes: torch.Tensor, gate: torch.Tensor,
                 c_base: int, c_take: int, src: Optional[torch.Tensor] = None) -> torch.Tensor:
-        """One gated chunk ``[B, N, P, P, c_take]``: ``roi_pool_gated``, or
-        the ROI row of ``roi_loop_pool_gated`` reading copy ``src [B, N]``."""
+        """One gated chunk ``[B, N, P, P, c_take]``: ``roi_pool_gated``
+        (differentiable), or the ROI row of ``roi_loop_pool_gated`` reading
+        copy ``src [B, N]``."""
         if self.pooler_type == "ROILoopPool":
             return roi_loop_pool_gated(feat, boxes, gate, src, c_base, c_take, 1, self.output_size,
                                        self.scale, self.context_ratio)[0]
-        return roi_pool_gated(feat, boxes, gate, c_base, c_take, self.output_size, self.scale)
+        return RoIPoolGatedFunction.apply(feat, boxes, gate, c_base, c_take, self.output_size,
+                                          self.scale)
 
-    def chunks(self, feat: torch.Tensor, boxes: torch.Tensor, objectness: torch.Tensor,
+    def chunks(self, feat: torch.Tensor, boxes: torch.Tensor, gate: torch.Tensor,
                valid: torch.Tensor, c_take: int,
                level_ids: Optional[torch.Tensor] = None) -> Iterator[torch.Tensor]:
         """Lazily pool every channel chunk of ``feat [S, H, W, C]`` for
-        ``boxes [B, N, 4]``, gated by ``(objectness + 1) * valid``; ``S`` is
-        ``B``, or ``n_br * B`` for an MRRP ROILoopPool routed by
-        ``level_ids``."""
-        gate = ((objectness.float() + 1.0) * valid.float()).contiguous()
+        ``boxes [B, N, 4]`` (zeroed where not ``valid``), gated by ``gate
+        [B, N]``; ``S`` is ``B``, or ``n_br * B`` for an MRRP ROILoopPool
+        routed by ``level_ids``."""
+        gate = gate.float().contiguous()
         zero = torch.zeros((), dtype=torch.float32, device=boxes.device)
         boxes = torch.where(valid[..., None], boxes.float(), zero).contiguous()
         src = None

@@ -22,13 +22,22 @@ context, each a max that starts at 0. ``src`` picks the feature copy each ROI
 reads (MRRP: ``branch * B + b`` of the branch-major concat), so the ROIs
 need no sorting by branch. The same rounding of the gate holds.
 
+``RoIPoolGatedFunction`` makes ``roi_pool_gated`` differentiable (the
+counterpart of ``roi_pool_fused_ad``, ``roi_pool_fused.py:2109``): its
+backward is ``roi_pool_gated_bwd``, a third kernel, whose feature cotangent
+splits each bin's cotangent equally among the pixels that tie its max, as
+``jnp.max``'s VJP does at both stages of the reference's separable max, and
+whose gate cotangent is ``sum(g * out) / gate`` where ``|gate| > 1e-8``.
+
 A CPU tensor takes the plain version; a CUDA tensor launches the kernel or
-raises. ``LAUNCHES`` and ``LOOP_LAUNCHES`` count the two kernels' launches.
+raises. ``LAUNCHES``, ``LOOP_LAUNCHES`` and ``BWD_LAUNCHES`` count the three
+kernels' launches.
 """
 
 from __future__ import annotations
 
 import ctypes
+from typing import Optional, Tuple
 
 import torch
 
@@ -36,6 +45,7 @@ NEG_INF = -1e30  # the reference's fill value for masked-out pixels
 
 LAUNCHES = 0
 LOOP_LAUNCHES = 0
+BWD_LAUNCHES = 0
 
 _DTYPE_SUFFIX = {torch.bfloat16: "bf16", torch.float32: "f32"}
 
@@ -169,6 +179,163 @@ def roi_pool_gated(
         raise RuntimeError(f"roi_pool_gated kernel launch failed: cudaError {rc}")
     LAUNCHES += 1
     return out
+
+
+def roi_pool_gated_bwd_plain(
+    feat: torch.Tensor,
+    rois: torch.Tensor,
+    gate: torch.Tensor,
+    out: Optional[torch.Tensor],
+    g: torch.Tensor,
+    c_base: int,
+    c_take: int,
+    output_size: int = 7,
+    spatial_scale: float = 1.0,
+    need_feat: bool = True,
+    need_gate: bool = True,
+    max_elems: int = 1 << 27,
+) -> Tuple[Optional[torch.Tensor], Optional[torch.Tensor]]:
+    """The plain PyTorch version of ``_pool_ad_bwd``
+    (``wsovod_tpu/ops/pallas/roi_pool_fused.py:2146``): ``(g_feat [B, H, W,
+    C] in feat's dtype, zero outside the chunk, g_gate [B, N] in gate's
+    dtype)``, each ``None`` where not wanted.
+
+    ``g_gate`` follows the reference's formula: ``sum(g * out)`` over the
+    ROI's bins and channels in float32, divided by the gate where ``|gate|
+    > 1e-8``, else 0. ``g_feat`` is autograd through the plain forward's
+    separable masked max (``amax`` splits a cotangent equally among tied
+    entries, as ``jnp.max``'s VJP) in float32, times the gate rounded to
+    feat's dtype as the forward used it, summed in float32 over ROI chunks
+    sized by ``max_elems`` and rounded once to feat's dtype."""
+    g_gate = None
+    if need_gate:
+        s = (g.float() * out.float()).sum(dim=(2, 3, 4))
+        big = gate.abs() > 1e-8
+        g_gate = torch.where(big, s / torch.where(big, gate, torch.ones_like(gate)),
+                             torch.zeros_like(s)).to(gate.dtype)
+    if not need_feat:
+        return None, g_gate
+    b, h_lim, w_lim, _ = feat.shape
+    n, p = rois.shape[1], output_size
+    reg = round_region(rois, spatial_scale)
+    hlo, hhi = _bin_edges(reg[..., 1], reg[..., 3], p, h_lim)
+    wlo, whi = _bin_edges(reg[..., 0], reg[..., 2], p, w_lim)
+    hidx = torch.arange(h_lim, device=feat.device)
+    widx = torch.arange(w_lim, device=feat.device)
+    neg = torch.tensor(NEG_INF, dtype=torch.float32, device=feat.device)
+    gd = gate.to(feat.dtype).float()
+    step = max(1, max_elems // max(1, p * h_lim * w_lim * c_take))
+    acc = torch.zeros((b, h_lim, w_lim, c_take), dtype=torch.float32, device=feat.device)
+    for i in range(b):
+        fi = feat[i, ..., c_base : c_base + c_take].float()
+        for s in range(0, n, step):
+            e = min(n, s + step)
+            row_in = (hidx >= hlo[i, s:e, :, None]) & (hidx < hhi[i, s:e, :, None])
+            col_in = (widx >= wlo[i, s:e, :, None]) & (widx < whi[i, s:e, :, None])
+            leaf = fi.detach().requires_grad_(True)
+            with torch.enable_grad():
+                pooled = _masked_max(leaf, row_in, col_in, neg)
+                pooled = torch.where(pooled <= neg, torch.zeros_like(pooled), pooled)
+                (grad,) = torch.autograd.grad(pooled * gd[i, s:e, None, None, None], leaf,
+                                              g[i, s:e].float())
+            acc[i] += grad
+    g_feat = torch.zeros_like(feat)
+    g_feat[..., c_base : c_base + c_take] = acc.to(feat.dtype)
+    return g_feat, g_gate
+
+
+def roi_pool_gated_bwd(
+    feat: torch.Tensor,
+    rois: torch.Tensor,
+    gate: torch.Tensor,
+    out: Optional[torch.Tensor],
+    g: torch.Tensor,
+    c_base: int,
+    c_take: int,
+    output_size: int = 7,
+    spatial_scale: float = 1.0,
+    need_feat: bool = True,
+    need_gate: bool = True,
+) -> Tuple[Optional[torch.Tensor], Optional[torch.Tensor]]:
+    """Backward of ``roi_pool_gated`` at cotangent ``g [B, N, P, P,
+    c_take]``: ``(g_feat, g_gate)`` as ``roi_pool_gated_bwd_plain``; ``out``
+    (the forward's output) is read only for ``g_gate``. On the card the
+    feature cotangent is summed with float32 atomics, so it equals the plain
+    version to float tolerance, not bit for bit."""
+    global BWD_LAUNCHES
+    _check(feat, rois, gate, c_base, c_take)
+    b, n = rois.shape[:2]
+    shape = (b, n, output_size, output_size, c_take)
+    if tuple(g.shape) != shape or (need_gate and (out is None or tuple(out.shape) != shape)):
+        raise ValueError(f"g (and out for the gate cotangent) must be {shape}, got "
+                         f"{tuple(g.shape)}, {None if out is None else tuple(out.shape)}")
+    if feat.device.type == "cpu":
+        return roi_pool_gated_bwd_plain(feat, rois, gate, out, g, c_base, c_take, output_size,
+                                        spatial_scale, need_feat, need_gate)
+    if feat.device.type != "cuda":
+        raise ValueError(f"roi_pool_gated_bwd runs on CPU or CUDA tensors, not {feat.device}")
+    if feat.dtype not in _DTYPE_SUFFIX:
+        raise TypeError(f"roi_pool_gated_bwd kernel takes bfloat16 or float32, not {feat.dtype}")
+    if not feat.is_contiguous() or feat.data_ptr() % 16:
+        raise ValueError("feat must be a contiguous, 16-byte aligned NHWC tensor")
+    _, h, w, c = feat.shape
+    if c % 2 or c_base % 2 or c_take % 2:
+        raise ValueError("C, c_base and c_take must be even (two channels per thread)")
+    region = round_region(rois, spatial_scale).contiguous()
+    gate_dt = gate.to(feat.dtype).contiguous()
+    gate_f32 = gate.float().contiguous()
+    g = g.to(feat.dtype).contiguous()
+    out = out.to(feat.dtype).contiguous() if need_gate else None
+    scratch = (torch.zeros((b, h, w, c_take), dtype=torch.float32, device=feat.device)
+               if need_feat else None)
+    g_gate = torch.empty((b, n), dtype=torch.float32, device=feat.device) if need_gate else None
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
+    neg_floor = float(torch.tensor(NEG_INF, dtype=feat.dtype))
+    fn = _kernel("roi_pool_gated_bwd.cu", "wsovod_roi_pool_gated_bwd", feat.dtype,
+                 [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8 + [ctypes.c_float, ctypes.c_void_p])
+    # the temporaries are freed when this returns, while the kernel may still
+    # run: the caching allocator reuses their memory only in stream order
+    with torch.cuda.device(feat.device):
+        stream = torch.cuda.current_stream(feat.device).cuda_stream
+        rc = fn(feat.data_ptr(), region.data_ptr(), gate_dt.data_ptr(), gate_f32.data_ptr(),
+                g.data_ptr(), ptr(out), ptr(scratch), ptr(g_gate), b, h, w, c, n, int(c_base),
+                int(c_take), int(output_size), neg_floor, stream)
+    if rc != 0:
+        raise RuntimeError(f"roi_pool_gated_bwd kernel launch failed: cudaError {rc}")
+    BWD_LAUNCHES += 1
+    g_feat = None
+    if need_feat:
+        g_feat = torch.zeros_like(feat)
+        g_feat[..., c_base : c_base + c_take] = scratch.to(feat.dtype)
+    return g_feat, (g_gate.to(gate.dtype) if need_gate else None)
+
+
+class RoIPoolGatedFunction(torch.autograd.Function):
+    """``roi_pool_gated`` under autograd (``roi_pool_fused_ad``): the forward
+    launches the pool kernel, the backward ``roi_pool_gated_bwd``. It saves
+    nothing when neither ``feat`` nor ``gate`` needs a gradient (a frozen
+    backbone and a validity gate, every shipped config), and the forward's
+    output only when the gate needs one."""
+
+    @staticmethod
+    def forward(ctx, feat, rois, gate, c_base, c_take, output_size, spatial_scale):
+        out = roi_pool_gated(feat, rois, gate, c_base, c_take, output_size, spatial_scale)
+        need_feat, need_gate = ctx.needs_input_grad[0], ctx.needs_input_grad[2]
+        if need_feat or need_gate:
+            ctx.save_for_backward(feat, rois, gate, out if need_gate else None)
+            ctx.args = (c_base, c_take, output_size, spatial_scale)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        feat, rois, gate, out = ctx.saved_tensors
+        g_feat, g_gate = roi_pool_gated_bwd(feat, rois, gate, out, g, *ctx.args,
+                                            need_feat=ctx.needs_input_grad[0],
+                                            need_gate=ctx.needs_input_grad[2])
+        return g_feat, None, g_gate, None, None, None, None
 
 
 def _masked_max(f: torch.Tensor, row_in: torch.Tensor, col_in: torch.Tensor,

@@ -85,3 +85,28 @@ def apply_deltas(
         dim=-1,
     )
     return out.reshape(orig_shape)
+
+
+def get_deltas(src_boxes: torch.Tensor, target_boxes: torch.Tensor,
+               weights=(1.0, 1.0, 1.0, 1.0)) -> torch.Tensor:
+    """Faster R-CNN ``(dx, dy, dw, dh)`` deltas mapping ``src_boxes`` to
+    ``target_boxes`` (``[..., 4]`` each). A source of zero width or height
+    divides by 1 instead, and a target side is floored at 1e-8 before the
+    log, as the JAX package."""
+    src_w = src_boxes[..., 2] - src_boxes[..., 0]
+    src_h = src_boxes[..., 3] - src_boxes[..., 1]
+    src_cx = src_boxes[..., 0] + 0.5 * src_w
+    src_cy = src_boxes[..., 1] + 0.5 * src_h
+    tgt_w = target_boxes[..., 2] - target_boxes[..., 0]
+    tgt_h = target_boxes[..., 3] - target_boxes[..., 1]
+    tgt_cx = target_boxes[..., 0] + 0.5 * tgt_w
+    tgt_cy = target_boxes[..., 1] + 0.5 * tgt_h
+
+    wx, wy, ww, wh = weights
+    safe_w = torch.where(src_w > 0, src_w, torch.ones_like(src_w))
+    safe_h = torch.where(src_h > 0, src_h, torch.ones_like(src_h))
+    dx = wx * (tgt_cx - src_cx) / safe_w
+    dy = wy * (tgt_cy - src_cy) / safe_h
+    dw = ww * torch.log(tgt_w.clamp(min=1e-8) / safe_w)
+    dh = wh * torch.log(tgt_h.clamp(min=1e-8) / safe_h)
+    return torch.stack([dx, dy, dw, dh], dim=-1)

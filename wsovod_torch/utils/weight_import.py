@@ -5,10 +5,12 @@ Names and layouts are the reference torch modules' (``backbone.res2.0.conv1.
 weight``, ``roi_heads.box_head.fc1.weight`` as ``[out, c*h*w]``,
 ``roi_heads.box_refinery.0.cls.projection.0.weight``,
 ``data_aware_head.datasets_feat.weight``,
-``proposal_generator.rpn_head.conv.weight``, ...), so the same ``state_dict``
-loader takes a reference WSOVOD checkpoint. Heads the port has no module for
-yet (the training-only object miner) are left out. An MRRP model's tree has
-the same names: its branches share the stage's weights.
+``proposal_generator.rpn_head.conv.weight``,
+``roi_heads.object_miner.cls.weight``, ...), so the same ``state_dict``
+loader takes a reference WSOVOD checkpoint. An MRRP model's tree has the
+same names: its branches share the stage's weights. The JAX package creates
+the object miner's parameters only when it initialises in training mode; a
+tree without them maps without them.
 """
 
 from __future__ import annotations
@@ -85,6 +87,12 @@ def state_dict_from_jax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
     out["roi_heads.box_head.fc1.bias"] = dan["fc1"]["bias"]
     out["roi_heads.box_head.fc2.weight"] = _fc(dan["fc2"]["kernel"])
     out["roi_heads.box_head.fc2.bias"] = dan["fc2"]["bias"]
+
+    miner = heads.get("object_miner")
+    if miner is not None:
+        for nm in ("cls", "det"):
+            out[f"roi_heads.object_miner.{nm}.weight"] = _fc(miner[nm]["kernel"])
+            out[f"roi_heads.object_miner.{nm}.bias"] = miner[nm]["bias"]
 
     k = 0
     while f"box_refinery_{k}" in heads:

@@ -6,7 +6,7 @@
 Phases, in order; any failure exits nonzero before the last line is printed:
 
 1. Device and build: the card's name and power limit (``nvidia-smi``), TF32
-   off for matmuls and convolutions, both CUDA kernels built from
+   off for matmuls and convolutions, the four CUDA kernels built from
    ``wsovod_torch/kernels/csrc`` with ``nvcc`` for ``sm_90a`` (one ``nvcc``
    per source, started together).
 2. The gated ROIPool kernel against its plain PyTorch version at the plain
@@ -38,7 +38,13 @@ Phases, in order; any failure exits nonzero before the last line is printed:
    on a 0.25 grid so bins tie, gate-0 rows), bfloat16 and float32, both
    cotangents: one chunk at full N and every chunk at a reduced N, to float
    tolerance (float32 atomics); its time, the plain version's and the bound.
-7. The ``train-plain`` slice: ``WSOVODTrainer`` on ``WSOVOD_WSR_50_DC5_1x.yaml``
+7. The ROILoopPool's backward kernel against its plain version at the MRRP
+   training shape (the three branch copies of res5, ``[12, 100, 152,
+   2048]``, the same box mix routed to random branches plus edge, 2-pixel
+   and gate-0 rows, a post-ReLU map on a 0.25 grid), bfloat16 and float32,
+   both cotangents, one chunk: timed at full N, compared on the first 1024
+   ROIs per image; its time, the plain version's and the bound.
+8. The ``train-plain`` slice: ``WSOVODTrainer`` on ``WSOVOD_WSR_50_DC5_1x.yaml``
    at full width (``FREEZE_AT`` 5 as shipped, BBOX_REFINE off for want of a
    SAM checkpoint, the recipe scaled to one card: ``BASE_LR`` 0.0025,
    ``ITER_SIZE`` 4), B=4 synthetic 800x1216 images with 1-4 image-level
@@ -52,10 +58,19 @@ Phases, in order; any failure exits nonzero before the last line is printed:
    per iteration split into forward / backward / optimizer (forward also
    into backbone / rpn / pool+fc1 / heads+mining+losses), images/s, peak
    memory and the busy share of one profiled iteration.
-8. The ``train-res5`` slice: the same with ``FREEZE_AT`` 4 for 4 iterations
-   (1 update): res5's weights change and the backward kernel launches 4
-   times per iteration.
-9. The card line, one JSON line of kernel records (with each kernel's bound
+9. The ``train-res5`` slice: the same as 8. with ``FREEZE_AT`` 4 for 4
+   iterations (1 update): res5's weights change and the backward kernel
+   launches 4 times per iteration.
+10. The ``train-mrrp`` and ``train-mrrp-res5`` slices: the same on
+   ``WSOVOD_MRRP_WSR_50_DC5_1x.yaml`` (res5 three times, three anchor
+   levels, the ROILoopPool's three rows into the DAN as one batch of rows,
+   ContextLocNet's object miner), ``FREEZE_AT`` 5 and 4, 4 iterations each.
+   Checks as 8., plus: the loop kernel launched 4 times per iteration with
+   3 rows per chunk, the RPN proposing from all three branches, and under
+   ``FREEZE_AT`` 4 the loop backward launched 4 times per iteration, the
+   model's first launch re-run on a subset of its ROIs against the plain
+   version.
+11. The card line, one JSON line of kernel records (with each kernel's bound
    on this card computed from this run's inputs), and the result line.
 
 It imports no JAX and nothing of ``wsovod_tpu``.
@@ -87,7 +102,10 @@ N_BATCHES = 3  # timed batches of B images, per slice
 REDUCED_N = 256  # ROIs per image where every chunk is checked against the plain pools
 TB, TH, TW = 4, 800, 1216  # training: images per iteration and their size
 TRAIN_FEAT = (TB, 100, 152, 2048)  # res5 at stride 8
-TRAIN_ITERS, RES5_ITERS = 8, 4  # iterations of the two train slices (ITER_SIZE 4)
+TRAIN_FEAT_MRRP = (N_BRANCH * TB,) + TRAIN_FEAT[1:]  # the three branch copies of res5
+TRAIN_ITERS, RES5_ITERS = 8, 4  # iterations of the two plain train slices (ITER_SIZE 4)
+MRRP_ITERS, MRRP_RES5_ITERS = 4, 4  # iterations of the two MRRP train slices
+LOOP_BWD_PLAIN_N = 1024  # ROIs per image where the loop backward meets its plain version
 PROFILE_DIR = os.path.join(REPO, "profiles")  # git-ignored
 # NVIDIA H100 SXM data sheet: HBM rate, and the float32 rate outside the
 # tensor cores (the pool kernels compare in float32)
@@ -176,6 +194,19 @@ def bin_pixels(rp, region, hole, p, h_lim, w_lim):
         ow = (whi.minimum(hole[..., 2, None]) - wlo.maximum(hole[..., 0, None] + 1)).clamp(min=0)
         count = count - oh.long()[..., :, None] * ow.long()[..., None, :]
     return count
+
+
+def hollow_set_pixels(rp, region, hole, p, h_lim, w_lim):
+    """Pixels of the two masked sets of each frame or context bin, ``[...,
+    P, P]``: the bin's rows x its columns outside the hole's column interior,
+    plus its rows outside the hole's row interior x its columns (a pixel in
+    both counts twice: the backward visits both sets)."""
+    hlo, hhi = rp._bin_edges(region[..., 1], region[..., 3], p, h_lim)
+    wlo, whi = rp._bin_edges(region[..., 0], region[..., 2], p, w_lim)
+    bh, bw = (hhi - hlo).clamp(min=0).long(), (whi - wlo).clamp(min=0).long()
+    oh = (hhi.minimum(hole[..., 3, None]) - hlo.maximum(hole[..., 1, None] + 1)).clamp(min=0).long()
+    ow = (whi.minimum(hole[..., 2, None]) - wlo.maximum(hole[..., 0, None] + 1)).clamp(min=0).long()
+    return bh[..., :, None] * (bw - ow)[..., None, :] + (bh - oh)[..., :, None] * bw[..., None, :]
 
 
 def bound(pixels: int, out_elems: int, in_bytes: int, out_bytes: int):
@@ -450,7 +481,8 @@ def run_slice(torch, dev, rp, tag, config, emb):
     if len(captured) != N_CHUNKS:
         raise AssertionError(f"{tag}: captured {len(captured)} pooled chunks")
     max_err = 0.0
-    for k, ((feat, boxes, gate, c_base, c_take, src), out) in enumerate(captured):
+    for k, ((feat, boxes, gate, c_base, c_take, src, rows), out) in enumerate(captured):
+        assert rows == 1, rows
         assert out.shape == (B, N_ROIS, 7, 7, C_TAKE), out.shape
         if loop:
             assert feat.shape[0] == N_BRANCH * B, feat.shape
@@ -547,6 +579,110 @@ def phase_bwd_kernel(torch, dev, rp):
             "bound_ms": bound_ms, "bound_by": bound_by}
 
 
+def phase_loop_bwd_kernel(torch, dev, rp):
+    """The ROILoopPool's backward kernel vs plain at the MRRP training shape:
+    res5's three branch copies ``[12, 100, 152, 2048]`` (a post-ReLU map on a
+    0.25 grid, so bins tie, many at 0), 5024 ROIs per image from the box mix
+    routed to random branches, with overhanging, degenerate, 2-pixel (empty
+    holes), invalid and gate-0 rows; bfloat16 and float32, both cotangents,
+    one 512-channel chunk. The kernel is timed at full N, and meets its
+    plain version on the first ``LOOP_BWD_PLAIN_N`` ROIs per image (the
+    plain version at full N would take minutes). Tolerance as the ROIPool
+    backward's: the kernel adds the feature cotangent with float32 atomics
+    in a varying order, so |kernel - plain| <= rtol |plain| + 1e-5 max
+    |plain| with rtol 1e-5 (float32) or one bfloat16 step, 2**-7; the gate
+    cotangent rtol 1e-4."""
+    rng = np.random.RandomState(4)
+    rois, gate = pool_inputs(rng, TB, TW, TH)
+    rois[:, 5] = [300, 300, 310, 310]  # 2 px at stride 8: both holes empty
+    rois[:, 6] = [100, 100, 500, 400]
+    gate[:, 6] = 0.0  # a valid box with gate 0
+    branch = rng.randint(0, N_BRANCH, (TB, N_ROIS))
+    branch[:, :N_BRANCH] = np.arange(N_BRANCH)
+    src = (branch * TB + np.arange(TB)[:, None]).astype(np.int32)
+    rois_t, gate_t, src_t = (torch.from_numpy(a).to(dev) for a in (rois, gate, src))
+    g = torch.Generator(device=dev).manual_seed(4)
+    base = torch.round(torch.relu(torch.randn(TRAIN_FEAT_MRRP, generator=g, device=dev)) * 4) / 4
+    n = LOOP_BWD_PLAIN_N
+    sub = [t[:, :n].contiguous() for t in (rois_t, gate_t, src_t)]
+    max_err, times = 0.0, {}
+    for dtype, rtol in ((torch.bfloat16, 2.0 ** -7), (torch.float32, 1e-5)):
+        feat = base.to(dtype).contiguous()
+        cot = torch.randn((3, TB, N_ROIS, 7, 7, C_TAKE), generator=g, device=dev, dtype=dtype)
+        name = str(dtype)[6:]
+        if dtype == torch.bfloat16:  # the training path's call: the feature cotangent only
+            times["ms"] = cuda_ms(lambda: rp.roi_loop_pool_gated_bwd(
+                feat, rois_t, gate_t, src_t, None, cot, C_TAKE, C_TAKE, 7, 0.125,
+                need_gate=False), 5)
+            for rows in (1, 2):  # where the time goes: the ROI row, then with the frame
+                cot_r = cot[:rows].contiguous()
+                times[f"ms_rows{rows}"] = cuda_ms(lambda: rp.roi_loop_pool_gated_bwd(
+                    feat, rois_t, gate_t, src_t, None, cot_r, C_TAKE, C_TAKE, 7, 0.125,
+                    need_gate=False), 3)
+                del cot_r
+        cot_n = cot[:, :, :n].contiguous()
+        del cot
+        out = rp.roi_loop_pool_gated(feat, *sub, C_TAKE, C_TAKE, 3, 7, 0.125)
+        got_f, got_g = rp.roi_loop_pool_gated_bwd(feat, *sub, out, cot_n, C_TAKE, C_TAKE, 7, 0.125)
+        if dtype == torch.bfloat16:
+            times["ms_at_plain_n"] = cuda_ms(lambda: rp.roi_loop_pool_gated_bwd(
+                feat, *sub, None, cot_n, C_TAKE, C_TAKE, 7, 0.125, need_gate=False), 5)
+        (want_f, _), t = timed(lambda: rp.roi_loop_pool_gated_bwd_plain(
+            feat, *sub, None, cot_n, C_TAKE, C_TAKE, 7, 0.125, need_gate=False,
+            max_elems=1 << 28))
+        _, want_g = rp.roi_loop_pool_gated_bwd_plain(feat, *sub, out, cot_n, C_TAKE, C_TAKE, 7,
+                                                     0.125, need_feat=False)
+        if dtype == torch.bfloat16:
+            times["plain_ms"] = t
+        err = (got_f.float() - want_f.float()).abs()
+        max_err = max(max_err, err.max().item())
+        scale = want_f.float().abs().max()
+        if not (scale > 0 and (err <= rtol * want_f.float().abs() + 1e-5 * scale).all()):
+            raise AssertionError(f"roi_loop_pool_gated_bwd g_feat != plain ({name}): max |err| "
+                                 f"{err.max().item()}, max |plain| {scale.item()}")
+        gerr = (got_g - want_g).abs()
+        if not (gerr <= 1e-4 * want_g.abs() + 1e-4 * want_g.abs().max()).all():
+            raise AssertionError(f"roi_loop_pool_gated_bwd g_gate != plain ({name}): max |err| "
+                                 f"{gerr.max().item()}")
+        log(f"roi_loop_pool_gated_bwd ~= plain, {name}: {n} ROIs per image on one chunk, both "
+            f"cotangents (rtol {rtol:g}); plain call {t / 1e3:.3f} s")
+        del feat, cot_n, out, got_f, got_g, want_f, want_g, err
+        torch.cuda.empty_cache()
+    bound_ms, bound_by, nbytes, ops = loop_bwd_bound(torch, rp, rois_t, gate_t, src_t)
+    log(f"roi_loop_pool_gated_bwd bf16 {list(TRAIN_FEAT_MRRP)} x {N_ROIS} ROIs, one 512-channel "
+        f"chunk, feature cotangent: kernel {times['ms']:.3f} ms at {N_ROIS} ROIs per image "
+        f"(the ROI row alone {times['ms_rows1']:.3f} ms, with the frame {times['ms_rows2']:.3f} "
+        f"ms), {times['ms_at_plain_n']:.3f} ms at {n}; plain {times['plain_ms']:.3f} ms at {n}; bound "
+        f"{bound_ms:.3f} ms at {N_ROIS} ({bound_by}: {nbytes / 1e6:.1f} MB, {ops / 1e9:.3f} G "
+        f"operations)")
+    return {"max_abs_err": max_err, "ms": times["ms"], "plain_ms": times["plain_ms"],
+            "bound_ms": bound_ms, "bound_by": bound_by, "n_rois": N_ROIS, "plain_n_rois": n,
+            "ms_at_plain_n": times["ms_at_plain_n"]}
+
+
+def loop_bwd_bound(torch, rp, rois_t, gate_t, src_t):
+    """``(bound_ms, bound_by, bytes, operations)`` of one loop-backward
+    chunk call at the training shape, feature cotangent only: read the
+    three-row cotangent, the feature chunks of the copies some ROI reads,
+    boxes, gates and sources once, write the float32 scratch of those
+    copies once; a max and a tie test per visited pixel and channel (the
+    ROI's bins, both masked sets of the frame's and the context's) for the
+    ROIs of nonzero gate, and a gate multiply per cotangent element."""
+    h, w = TRAIN_FEAT_MRRP[1], TRAIN_FEAT_MRRP[2]
+    geo = rp.loop_geometry(rois_t, 0.125, h, w, 1.8)
+    live = (gate_t != 0)[..., None, None]
+    pixels = sum(int((c * live).sum()) for c in (
+        bin_pixels(rp, geo[..., 0:4], None, 7, h, w),
+        hollow_set_pixels(rp, geo[..., 0:4], geo[..., 8:12], 7, h, w),
+        hollow_set_pixels(rp, geo[..., 4:8], geo[..., 12:16], 7, h, w))) * C_TAKE
+    copies = int(torch.unique(src_t).numel())
+    g_elems = 3 * TB * N_ROIS * 49 * C_TAKE
+    chunk_elems = copies * h * w * C_TAKE
+    in_bytes = g_elems * 2 + chunk_elems * 2 + rois_t.numel() * 4 + 2 * gate_t.numel() * 4
+    bound_ms, bound_by = bound(2 * pixels, g_elems, in_bytes, chunk_elems * 4)
+    return bound_ms, bound_by, in_bytes + chunk_elems * 4, 2 * pixels + g_elems
+
+
 def train_batches(n, seed):
     """``n`` synthetic training batches: B=4 800x1216 images, 4000 SAM
     proposals each, 1-4 distinct image-level classes of 80 per image."""
@@ -566,6 +702,7 @@ def train_batches(n, seed):
     return out
 
 
+ALL_COUNTERS = ("LAUNCHES", "LOOP_LAUNCHES", "BWD_LAUNCHES", "LOOP_BWD_LAUNCHES")
 LOSSES = ("loss_cls_object_mining", "loss_cls_r0", "loss_box_reg_r0", "loss_rpn_cls",
           "loss_rpn_loc")
 
@@ -650,15 +787,15 @@ def train_split(torch, trainer, batches, emb, tag):
             "busy_share": busy_ms / wall_ms}
 
 
-def run_train(torch, dev, rp, tag, freeze_at, iters, emb, resume_check):
-    """Drive ``WSOVODTrainer.train()`` for ``iters`` iterations and check it
-    (see the module docstring); returns ``(pool launches, backward
-    launches)``."""
+def run_train(torch, dev, rp, tag, config, freeze_at, iters, emb, resume_check):
+    """Drive ``WSOVODTrainer.train()`` on ``config`` for ``iters``
+    iterations and check it (see the module docstring); returns ``(pool
+    launches, backward launches)`` of the config's pooler."""
     from wsovod_torch import get_cfg
     from wsovod_torch.engine.trainer import WSOVODTrainer
 
     cfg = get_cfg()
-    cfg.merge_from_file(PLAIN_CONFIG)
+    cfg.merge_from_file(config)
     cfg.TEST.AUG.ENABLED = False
     cfg.TPU.COMPUTE_DTYPE = "bfloat16"
     cfg.MODEL.WEIGHTS = ""  # seeded random weights
@@ -677,24 +814,75 @@ def run_train(torch, dev, rp, tag, freeze_at, iters, emb, resume_check):
         raise AssertionError(f"{tag}: ITER_SIZE {tc.WSOVOD.ITER_SIZE}, BASE_LR {tc.SOLVER.BASE_LR}, "
                              f"BBOX_REFINE {tc.WSOVOD.BBOX_REFINE.ENABLE}")
     model = trainer.model
-    log(f"{tag} trainer: {os.path.basename(PLAIN_CONFIG)}, FREEZE_AT {freeze_at}, "
+    log(f"{tag} trainer: {os.path.basename(config)}, FREEZE_AT {freeze_at}, "
         f"{sum(p.numel() for p in model.parameters() if p.requires_grad) / 1e6:.3f}M trainable of "
         f"{sum(p.numel() for p in model.parameters()) / 1e6:.3f}M parameters, built in "
         f"{time.perf_counter() - t0:.3f} s")
     before = {n: p.detach().clone() for n, p in model.named_parameters()}
+    loop = cfg.MODEL.ROI_BOX_HEAD.POOLER_TYPE == "ROILoopPool"
+    counters = ("LOOP_LAUNCHES", "LOOP_BWD_LAUNCHES") if loop else ("LAUNCHES", "BWD_LAUNCHES")
+    others = tuple(c for c in ALL_COUNTERS if c not in counters)
+    rows, branches, captured = [], set(), []
+
+    def pooled(mod, inp, out):
+        rows.append(out.shape[0] if out.dim() == 6 else 1)
+
+    def proposed(mod, inp, out):
+        props = out[0]
+        branches.update(torch.div(props.level_ids[props.valid], 1000,
+                                  rounding_mode="floor").unique().tolist())
+
+    kernel_bwd = rp.roi_loop_pool_gated_bwd
+
+    def capture_bwd(feat, rois, gate, src, out, g, *args, **kw):
+        # the inputs of the model's first loop-backward launch, on a subset of ROIs
+        if not captured:
+            k = LOOP_BWD_PLAIN_N // 4
+            captured.append((feat, rois[:, :k].contiguous(), gate[:, :k].contiguous(),
+                             src[:, :k].contiguous(), g[:, :, :k].contiguous(), args))
+        return kernel_bwd(feat, rois, gate, src, out, g, *args, **kw)
+
+    hooks = [model.roi_heads.pooler.register_forward_hook(pooled),
+             model.proposal_generator.register_forward_hook(proposed)]
+    rp.roi_loop_pool_gated_bwd = capture_bwd
     torch.cuda.reset_peak_memory_stats(dev)
-    rp.LAUNCHES = rp.BWD_LAUNCHES = rp.LOOP_LAUNCHES = 0
+    for c in ALL_COUNTERS:
+        setattr(rp, c, 0)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    trainer.train()
-    torch.cuda.synchronize()
+    try:
+        trainer.train()
+        torch.cuda.synchronize()
+    finally:
+        rp.roi_loop_pool_gated_bwd = kernel_bwd
+        for h in hooks:
+            h.remove()
     dt = time.perf_counter() - t0
-    launches, bwd_launches, loop = rp.LAUNCHES, rp.BWD_LAUNCHES, rp.LOOP_LAUNCHES
+    launches, bwd_launches = (getattr(rp, c) for c in counters)
+    other = {c: getattr(rp, c) for c in others}
     peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
     want_bwd = N_CHUNKS * iters if freeze_at <= 4 else 0
-    if (launches, bwd_launches, loop) != (N_CHUNKS * iters, want_bwd, 0):
-        raise AssertionError(f"{tag}: launches pool {launches}, backward {bwd_launches}, loop "
-                             f"{loop} (expected {N_CHUNKS * iters}, {want_bwd}, 0)")
+    if (launches, bwd_launches) != (N_CHUNKS * iters, want_bwd) or any(other.values()):
+        raise AssertionError(f"{tag}: launches {counters} {launches}, {bwd_launches}, others "
+                             f"{other} (expected {N_CHUNKS * iters}, {want_bwd}, 0)")
+    if rows != [3 if loop else 1] * (N_CHUNKS * iters):
+        raise AssertionError(f"{tag}: pooled rows per chunk {rows}")
+    if loop and branches != set(range(N_BRANCH)):
+        raise AssertionError(f"{tag}: RPN proposals from branches {sorted(branches)} only")
+    if loop and freeze_at <= 4:
+        feat, rois, gate, src, g, args = captured[0]
+        got, _ = kernel_bwd(feat, rois, gate, src, None, g, *args, need_gate=False)
+        want, _ = rp.roi_loop_pool_gated_bwd_plain(feat, rois, gate, src, None, g, *args,
+                                                   need_gate=False, max_elems=1 << 28)
+        err = (got.float() - want.float()).abs()
+        scale = want.float().abs().max()
+        if not (scale > 0 and (err <= 2.0 ** -7 * want.float().abs() + 1e-5 * scale).all()):
+            raise AssertionError(f"{tag}: the model's loop-backward launch, on {rois.shape[1]} "
+                                 f"ROIs per image, differs from plain: max |err| "
+                                 f"{err.max().item()}")
+        log(f"{tag}: the model's first loop-backward launch, re-run on its first {rois.shape[1]} "
+            f"ROIs per image, ~= plain (one bf16 step); max |err| {err.max().item():.3g}")
+        del captured[:], feat, got, want, err
     with open(os.path.join(out_dir, "metrics.json")) as f:
         records = [json.loads(line) for line in f]
     if [r["iteration"] for r in records] != [0, iters - 1]:
@@ -729,8 +917,9 @@ def run_train(torch, dev, rp, tag, freeze_at, iters, emb, resume_check):
     del before
     log(f"{tag} slice: train() ran {iters} iterations of B={TB} {TH}x{TW} ({iters // 4} updates) "
         f"in {dt:.3f} s = {TB * iters / dt:.3f} images/s, the first iteration's set-up and the "
-        f"final checkpoint save included; pool launches {launches}, "
-        f"backward launches {bwd_launches}; losses finite at iterations 0 and {iters - 1} "
+        f"final checkpoint save included; pool launches {launches} ({rows[0]} rows per chunk), "
+        f"backward launches {bwd_launches}; RPN proposals from branches {sorted(branches)}; "
+        f"losses finite at iterations 0 and {iters - 1} "
         f"({', '.join(f'{k} {records[-1][k]:.4f}' for k in LOSSES)}); frozen parameters "
         f"bit-identical, trainable ones updated, {changed} of {trainable} trainable tensors "
         f"changed; peak memory {peak_gb:.3f} GB")
@@ -779,7 +968,8 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     log(f"allow_tf32: matmul {torch.backends.cuda.matmul.allow_tf32}, "
         f"cudnn {torch.backends.cudnn.allow_tf32}")
-    sources = ["roi_pool_gated.cu", "roi_loop_pool_gated.cu", "roi_pool_gated_bwd.cu"]
+    sources = ["roi_pool_gated.cu", "roi_loop_pool_gated.cu", "roi_pool_gated_bwd.cu",
+               "roi_loop_pool_gated_bwd.cu"]
     t0 = time.perf_counter()
     libs = kernels.build_all(sources)
     for src in sources:
@@ -797,23 +987,33 @@ def main() -> int:
 
     # ---- 4., 5. the inference slices
     emb = torch.randn(80, 512, generator=torch.Generator().manual_seed(2)).to(dev)
-    by_path = {name: {} for name in ("roi_pool_gated", "roi_loop_pool_gated", "roi_pool_gated_bwd")}
+    by_path = {name: {} for name in ("roi_pool_gated", "roi_loop_pool_gated", "roi_pool_gated_bwd",
+                                     "roi_loop_pool_gated_bwd")}
     for name, tag, config in (("roi_pool_gated", "plain", PLAIN_CONFIG),
                               ("roi_loop_pool_gated", "mrrp", MRRP_CONFIG)):
         launches, err = run_slice(torch, dev, rp, tag, config, emb)
         records[name]["launches"] = by_path[name][tag] = launches
         records[name]["max_abs_err"] = max(records[name]["max_abs_err"], err)
 
-    # ---- 6. the backward kernel vs plain; 7., 8. the train slices
+    # ---- 6., 7. the backward kernels vs plain; 8.-10. the train slices
     records["roi_pool_gated_bwd"] = phase_bwd_kernel(torch, dev, rp)
-    for tag, freeze_at, iters in (("train-plain", 5, TRAIN_ITERS), ("train-res5", 4, RES5_ITERS)):
-        launches, bwd = run_train(torch, dev, rp, tag, freeze_at, iters, emb,
+    records["roi_loop_pool_gated_bwd"] = phase_loop_bwd_kernel(torch, dev, rp)
+    for tag, config, freeze_at, iters, pool, bwd_name in (
+            ("train-plain", PLAIN_CONFIG, 5, TRAIN_ITERS, "roi_pool_gated", "roi_pool_gated_bwd"),
+            ("train-res5", PLAIN_CONFIG, 4, RES5_ITERS, "roi_pool_gated", "roi_pool_gated_bwd"),
+            ("train-mrrp", MRRP_CONFIG, 5, MRRP_ITERS, "roi_loop_pool_gated",
+             "roi_loop_pool_gated_bwd"),
+            ("train-mrrp-res5", MRRP_CONFIG, 4, MRRP_RES5_ITERS, "roi_loop_pool_gated",
+             "roi_loop_pool_gated_bwd")):
+        launches, bwd = run_train(torch, dev, rp, tag, config, freeze_at, iters, emb,
                                   resume_check=freeze_at == 5)
-        by_path["roi_pool_gated"][tag] = launches
-        by_path["roi_pool_gated_bwd"][tag] = bwd
+        by_path[pool][tag] = launches
+        by_path[bwd_name][tag] = bwd
     records["roi_pool_gated_bwd"]["launches"] = by_path["roi_pool_gated_bwd"]["train-res5"]
+    records["roi_loop_pool_gated_bwd"]["launches"] = (
+        by_path["roi_loop_pool_gated_bwd"]["train-mrrp-res5"])
 
-    # ---- 6. result lines
+    # ---- 11. result lines
     meta = {
         "roi_pool_gated": ("wsovod_torch/kernels/csrc/roi_pool_gated.cu",
                            "wsovod_tpu/ops/pallas/roi_pool_fused.py:1585"),
@@ -821,7 +1021,10 @@ def main() -> int:
                                 "wsovod_tpu/ops/pallas/roi_pool_fused.py:1585"),
         "roi_pool_gated_bwd": ("wsovod_torch/kernels/csrc/roi_pool_gated_bwd.cu",
                                "wsovod_tpu/ops/pallas/roi_pool_fused.py:2146"),
+        "roi_loop_pool_gated_bwd": ("wsovod_torch/kernels/csrc/roi_loop_pool_gated_bwd.cu",
+                                    "wsovod_tpu/ops/pallas/roi_pool_fused.py:2240"),
     }
+    extra = ("n_rois", "plain_n_rois", "ms_at_plain_n")
     log(card)
     log(json.dumps({"kernels": [{
         "name": name, "route": "cuda", "source": meta[name][0], "replaces": meta[name][1],
@@ -831,6 +1034,7 @@ def main() -> int:
         # their backward (and the card's host has no torchvision)
         "library_ms": None,
         "launches_by_path": by_path[name],
+        **{k: r[k] for k in extra if k in r},
     } for name, r in records.items()]}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                            "count": torch.cuda.device_count()}}))

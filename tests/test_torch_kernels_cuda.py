@@ -41,10 +41,11 @@ def test_kernel_equals_plain(cuda):
     """Both pool kernels bit-equal to their plain versions in both dtypes
     and on an inner channel chunk, one launch counted per call; float16 and
     non-contiguous features are refused. The loop kernel at a medium size
-    (3 branch copies, 600 ROIs per image, routed), rows 1 and 3. The
-    backward kernel against its plain version to float tolerance."""
+    (3 branch copies, 600 ROIs per image, routed), rows 1 and 3. Both
+    backward kernels against their plain versions to float tolerance."""
     _check_loop_kernel(cuda)
     _check_backward_kernel(cuda)
+    _check_loop_backward_kernel(cuda)
     for dtype in (torch.bfloat16, torch.float32):
         feat, rois, gate = _inputs(cuda, dtype)
         for c_base, c_take in ((0, 64), (16, 32)):
@@ -122,6 +123,48 @@ def _check_loop_kernel(cuda):
         port.roi_loop_pool_gated(feat.half(), rois, gate, src, 0, 64)
 
 
+def _check_loop_backward_kernel(cuda):
+    """``roi_loop_pool_gated_bwd`` against ``roi_loop_pool_gated_bwd_plain``
+    at a medium size (3 branch copies, 600 ROIs per image, routed, edge and
+    gate-0 rows, one copy post-ReLU on a 0.5 grid so bins tie at 0), both
+    cotangents, both dtypes, and through ``RoILoopPoolGatedFunction``.
+    Tolerances as ``_check_backward_kernel``'s."""
+    b, n, n_br = 2, 600, 3
+    g = torch.Generator().manual_seed(3)
+    for dtype, rtol in ((torch.float32, 1e-5), (torch.bfloat16, 2.0 ** -7)):
+        feat, rois, gate = _inputs(cuda, dtype, b=b, h=43, w=66, c=256, n=n)
+        f = torch.round(feat.float() * 2) / 2
+        feat = torch.cat([f, torch.relu(f.flip(1)), f * -0.5], 0).to(dtype).contiguous()
+        gate[:, 3] = 0.0  # a valid box with gate 0
+        branch = torch.randint(0, n_br, (b, n), generator=g)
+        src = (branch * b + torch.arange(b)[:, None]).to(torch.int32).to(cuda)
+        c_base, c_take = 64, 128
+        out = port.roi_loop_pool_gated_plain(feat, rois, gate, src, c_base, c_take, 3, 7, 0.125)
+        cot = torch.randn(out.shape, generator=g).to(cuda, dtype)
+        before = port.LOOP_BWD_LAUNCHES
+        got_f, got_g = port.roi_loop_pool_gated_bwd(feat, rois, gate, src, out, cot, c_base, c_take,
+                                                    7, 0.125)
+        torch.cuda.synchronize()
+        assert port.LOOP_BWD_LAUNCHES == before + 1
+        want_f, want_g = port.roi_loop_pool_gated_bwd_plain(feat, rois, gate, src, out, cot,
+                                                            c_base, c_take, 7, 0.125)
+        scale = want_f.float().abs().max()
+        assert scale > 0
+        err = (got_f.float() - want_f.float()).abs()
+        assert (err <= rtol * want_f.float().abs() + 1e-5 * scale).all(), (dtype, err.max())
+        torch.testing.assert_close(got_g, want_g, rtol=1e-4, atol=1e-4 * want_g.abs().max())
+
+        leaf = feat.clone().requires_grad_(True)
+        before = (port.LOOP_LAUNCHES, port.LOOP_BWD_LAUNCHES)
+        y = port.RoILoopPoolGatedFunction.apply(leaf, rois, gate, src, c_base, c_take, 3, 7, 0.125,
+                                                1.8)
+        (y.float() * cot.float()).sum().backward()
+        torch.cuda.synchronize()
+        assert (port.LOOP_LAUNCHES, port.LOOP_BWD_LAUNCHES) == (before[0] + 1, before[1] + 1)
+        err = (leaf.grad.float() - want_f.float()).abs()
+        assert (err <= rtol * want_f.float().abs() + 1e-5 * scale).all(), (dtype, err.max())
+
+
 def test_model_forward_on_cuda(cuda):
     """Narrow models end to end on the card, plain and MRRP: the pooler goes
     through its kernel once per channel chunk, detections are finite."""
@@ -186,5 +229,20 @@ def test_model_forward_on_cuda(cuda):
     sum(losses.values()).backward()
     torch.cuda.synchronize()
     assert (port.LAUNCHES, port.BWD_LAUNCHES) == (before[0] + 1, before[1] + 1)
+    assert len(losses) == 5 and all(torch.isfinite(v) for v in losses.values()), losses
+    assert model.backbone.res5[0].conv1.weight.grad.abs().sum() > 0
+
+    # the same for MRRP: three rows per chunk, one loop pool and one loop
+    # backward launch
+    cfg.MODEL.MRRP.MRRP_ON = True
+    cfg.MODEL.ROI_BOX_HEAD.POOLER_TYPE = "ROILoopPool"
+    cfg.MODEL.ANCHOR_GENERATOR.SIZES = [[32, 64], [128, 256], [512, 768]]
+    model = build_model(cfg, device=cuda, seed=0).train()
+    before = (port.LOOP_LAUNCHES, port.LOOP_BWD_LAUNCHES)
+    losses = model.forward_train(batch, emb, iteration=5,
+                                 generator=torch.Generator(device=cuda).manual_seed(0))
+    sum(losses.values()).backward()
+    torch.cuda.synchronize()
+    assert (port.LOOP_LAUNCHES, port.LOOP_BWD_LAUNCHES) == (before[0] + 1, before[1] + 1)
     assert len(losses) == 5 and all(torch.isfinite(v) for v in losses.values()), losses
     assert model.backbone.res5[0].conv1.weight.grad.abs().sum() > 0

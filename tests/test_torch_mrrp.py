@@ -2,19 +2,26 @@
 
 * The plain ROILoopPool (the CUDA kernel's CPU stand-in) against
   ``wsovod_tpu.ops.roi_pool.roi_loop_pool`` times the gate, per ROI on the
-  feature copy its branch names: exact, float32 and bfloat16.
+  feature copy its branch names: exact, float32 and bfloat16. Its backward
+  (``roi_loop_pool_gated_bwd_plain``) against the JAX package's own
+  ``_pool_branched_bwd`` (MRRP routing) and ``_pool_ad_bwd`` with
+  ``loop_pool=True`` (one copy per image) on tie-heavy features, float32,
+  rtol 1e-5 (float32 summation order); and the halved cotangent of a bin
+  whose max ties 0.
 * The forward on the tiny MRRP R18 config (``configs/COCO-Detection/
   WSOVOD_MRRP_WSR_18_DC5_1x.yaml`` cut as ``tiny_cfg``) against
   ``model.apply(..., train=False)``, with all branches at test and with one.
   On the CPU the JAX pooler takes its unfused per-branch path, so no Pallas
   interpret run is involved. Tolerances as the plain slice's: rtol 1e-4, box
   atol 1e-3; validity, classes and ``level_ids`` exactly.
-* The weight round trip on the MRRP parameter tree.
+* The weight round trip on the MRRP training tree, and ContextLocNet's
+  object miner loaded from it against the JAX package's (rtol 1e-5).
 
 Three test items on purpose: many small items queued behind the JAX
 package's heavy tests have crashed XLA:CPU (ROADMAP.md, host facts).
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import torch
@@ -22,11 +29,14 @@ import torch
 from torch_port_common import (
     MRRP_YAML, embeddings, jax_reference, jax_stages, make_batch, tiny_cfg, torch_model_from_jax,
 )
+from wsovod_tpu.ops.pallas.roi_pool_fused import _pool_ad_bwd, _pool_branched_bwd
 from wsovod_tpu.ops.roi_pool import roi_loop_pool
+from wsovod_tpu.models.mil_heads import ObjectMiningOutputLayers as JaxObjectMiner
 from wsovod_tpu.utils.weight_import import import_wsovod_model
 from wsovod_torch import get_cfg
 from wsovod_torch.models import build_model
-from wsovod_torch.ops.roi_pool import roi_loop_pool_gated
+from wsovod_torch.models.mil_heads import ObjectMiningOutputLayers
+from wsovod_torch.ops.roi_pool import roi_loop_pool_gated, roi_loop_pool_gated_bwd_plain
 from wsovod_torch.structures.instances import Instances
 from wsovod_torch.utils.weight_import import state_dict_from_jax
 
@@ -97,6 +107,58 @@ def test_loop_pool_plain_matches_jax():
     # the edge rows pool something and the invalid row nothing
     assert (np.abs(want[:, :, :9]).reshape(3, 2, 9, -1).max(-1) > 0).any()
     assert not want[:, :, 9].any()
+    _check_loop_backward()
+
+
+def _check_loop_backward():
+    """The plain backward against ``_pool_branched_bwd`` and
+    ``_pool_ad_bwd(loop_pool=True)``, each called with ``out`` from the jnp
+    ``roi_loop_pool``: values on a 0.5 grid (ties, exact zeros, negatives),
+    one copy post-ReLU (bins whose max is 0), the edge boxes of
+    ``_loop_inputs`` (overhanging, degenerate, empty holes, wholly outside)
+    and gate-0 rows; both cotangents. Then the tie at 0: a 2x2 map of zeros
+    pooled into one bin sends each pixel ``g * gate / 2 / 2 / 2`` of the ROI
+    row (``jnp.maximum(M, 0)`` halves it, as ``torch.maximum``; a
+    ``clamp_min`` would not)."""
+    scale, c_base, c_take, b = 0.125, 4, 8, 2
+    feat, rois, gate, src = _loop_inputs(1)
+    feat = np.round(feat * 2) / 2
+    feat[1::b] = np.maximum(feat[1::b], 0)  # branch 0 of image 1, branch 1 of image 0, ...
+    feat = feat.astype(np.float32)
+    gate[:, 10] = 0.0  # a valid box with gate 0
+    g = np.random.RandomState(2).randn(3, b, rois.shape[1], 7, 7, c_take).astype(np.float32)
+    hwnc = (0, 1, 3, 4, 2, 5)  # the TPU kernel's [3, B, P, P, N, c] layout
+    args = (c_base, c_take, 7, scale, True, 1.8, None, False, None)
+    image = np.arange(b, dtype=np.int32)[:, None] + np.zeros_like(src)
+    for name, f, s in (("branched", feat, src), ("ad", feat[:b], image)):
+        out = _jax_loop_gated(f, rois, gate, s, c_base, c_take, scale, jnp.float32)
+        res = (jnp.asarray(f), jnp.asarray(rois), jnp.asarray(gate))
+        if name == "branched":
+            bwd = jax.jit(lambda res, g: _pool_branched_bwd(*args, res, g))
+            res += (jnp.asarray((s // b).astype(np.float32)),)
+        else:
+            bwd = jax.jit(lambda res, g: _pool_ad_bwd(*args, res, g))
+        want_feat, _, want_gate = bwd(res + (jnp.asarray(out.transpose(hwnc)),),
+                                      jnp.asarray(g.transpose(hwnc)))[:3]
+        got_feat, got_gate = roi_loop_pool_gated_bwd_plain(
+            torch.from_numpy(f), torch.from_numpy(rois), torch.from_numpy(gate),
+            torch.from_numpy(s), torch.from_numpy(out), torch.from_numpy(g), c_base, c_take, 7,
+            scale, 1.8)
+        np.testing.assert_allclose(got_feat.numpy(), want_feat, rtol=1e-5, atol=1e-5, err_msg=name)
+        np.testing.assert_allclose(got_gate.numpy(), want_gate, rtol=1e-5, atol=1e-5, err_msg=name)
+        assert np.abs(want_feat).max() > 0 and (got_gate.numpy()[:, 10] == 0).all()
+        assert not got_feat[..., :c_base].any() and not got_feat[..., c_base + c_take:].any()
+    # bins whose max ties 0 were in play, so the halving above was exercised
+    assert ((out == 0) & (np.abs(g) > 0)).any()
+
+    zeros = torch.zeros(1, 2, 2, 2)
+    box, one = torch.tensor([[[0.0, 0.0, 1.0, 1.0]]]), torch.ones(1, 1)
+    g1 = torch.zeros(3, 1, 1, 1, 1, 2)
+    g1[0] = 0.8
+    src = torch.zeros(1, 1, dtype=torch.int32)
+    got, _ = roi_loop_pool_gated_bwd_plain(zeros, box, 1.5 * one, src, None, g1, 0, 2, 1, 1.0, 1.8,
+                                           need_gate=False)
+    assert torch.equal(got, torch.full_like(zeros, 0.8 * 1.5 / 2 / 2 / 2))
 
 
 def _port_forward(model, batch):
@@ -188,8 +250,11 @@ def _check_single_branch_batch_of_three():
 def test_mrrp_weight_round_trip():
     """Reference-named blobs of the MRRP model through the reference
     importer and back are bit-equal and load with ``strict=True``: the
-    branches share weights, so the names are the plain model's. A random
-    SAM branch comes from an explicit generator only."""
+    branches share weights, so the names are the plain model's. The JAX
+    training tree (with the object miner) maps onto the port's names, and
+    its ContextLocNet miner, ``cls(roi)`` and ``det(frame) - det(ctx)``,
+    scores as the JAX package's, also with one class (the zero column). A
+    random SAM branch comes from an explicit generator only."""
     model = build_model(tiny_cfg(get_cfg(), MRRP_YAML), device="cpu", seed=None)
     plain = build_model(tiny_cfg(get_cfg()), device="cpu", seed=None)
     assert sorted(model.state_dict()) == sorted(plain.state_dict())
@@ -205,6 +270,23 @@ def test_mrrp_weight_round_trip():
     model.load_state_dict(back, strict=True)
     for k, v in model.state_dict().items():
         np.testing.assert_array_equal(v.numpy(), blobs[k], err_msg=k)
+
+    # the training tree's miner through state_dict_from_jax
+    model.load_state_dict(state_dict_from_jax(template), strict=True)
+    miner = model.roi_heads.object_miner
+    assert miner.context
+    jparams = {"params": template["params"]["roi_heads"]["object_miner"]}
+    x = rng.randn(3, 2, 7, 64).astype(np.float32)
+    valid = rng.rand(2, 7) > 0.3
+    for c in (5, 1):
+        jm = JaxObjectMiner(num_classes=c, context=True)
+        jp = jax.tree_util.tree_map(lambda a: a[..., :c], jparams)
+        want = jm.apply(jp, jnp.asarray(x), jnp.asarray(valid))
+        tm = ObjectMiningOutputLayers(64, c, context=True)
+        tm.load_state_dict({k: v[:c] for k, v in miner.state_dict().items()})
+        with torch.inference_mode():
+            got = tm(torch.from_numpy(x), torch.from_numpy(valid))
+        np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-7, err_msg=f"{c} classes")
 
     batch = {k: torch.from_numpy(v) for k, v in make_batch().items()}
     with torch.inference_mode():

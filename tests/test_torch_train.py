@@ -11,6 +11,10 @@
   backward at 4), and the parameters after two SGD updates (warmup, bias LR
   factor, backbone multiplier, weight decay), dropout off on both sides;
   clipping and ``ITER_SIZE`` accumulation on a toy model.
+* The same for the tiny MRRP R18 config at ``FREEZE_AT`` 4: three branches,
+  the three-row ROILoopPool, ContextLocNet's object miner, res5's gradient
+  through the loop pool's backward; the loop pool saving nothing at
+  ``FREEZE_AT`` 5, and all branches trained with a test branch index.
 * The port's trainer for two iterations with a checkpoint round trip.
 
 On the CPU the JAX model pools unfused: it gates the pooled tensor, the
@@ -22,7 +26,7 @@ sides hold float noise near 1e-12); parameters after the updates rtol 1e-5, atol
 the ops exact where they are discrete (labels, masks, indices) and 1e-5
 (float32 summation order) elsewhere.
 
-Three test items on purpose: many small items queued behind the JAX
+Four test items on purpose: many small items queued behind the JAX
 package's heavy tests have crashed XLA:CPU (ROADMAP.md, host facts).
 """
 
@@ -34,7 +38,9 @@ import optax
 import pytest
 import torch
 
-from torch_port_common import NUM_CLASSES, embeddings, jax_reference, make_batch, tiny_cfg
+from torch_port_common import (
+    MRRP_YAML, NUM_CLASSES, TINY_YAML, embeddings, jax_reference, make_batch, tiny_cfg,
+)
 from wsovod_tpu.models import mil_heads as jmil
 from wsovod_tpu.models import mining as jmine
 from wsovod_tpu.models.rpn import RPNAux as JaxRPNAux
@@ -280,11 +286,11 @@ def _check_pool_backward():
 
 
 # ------------------------------------------------------------ (b) a step
-def _train_cfg(cfg, freeze_at):
-    """The tiny config for training: train top-k as the test top-k, a
-    short warmup from 0.5 so the two updates use different rates, the
-    backbone multiplier off 1, one image per update."""
-    cfg = tiny_cfg(cfg)
+def _train_cfg(cfg, freeze_at, yaml=TINY_YAML, test_branch_idx=None):
+    """The tiny config (``tiny_cfg``) for training: train top-k as the test
+    top-k, a short warmup from 0.5 so the two updates use different rates,
+    the backbone multiplier off 1, one image per update."""
+    cfg = tiny_cfg(cfg, yaml, test_branch_idx)
     cfg.MODEL.BACKBONE.FREEZE_AT = freeze_at
     cfg.MODEL.RPN.PRE_NMS_TOPK_TRAIN = 64
     cfg.MODEL.RPN.POST_NMS_TOPK_TRAIN = 16
@@ -419,6 +425,150 @@ def test_train_step_matches_jax(monkeypatch):
             stays = frozen or n == "roi_heads.object_miner.det.bias"
             assert (v == init[n]).all() == stays, n
     _check_clipping_and_accumulation()
+
+
+def test_mrrp_train_step_matches_jax(monkeypatch):
+    """The tiny MRRP R18 config at ``FREEZE_AT`` 4, as
+    ``test_train_step_matches_jax``: the losses (the object miner's through
+    ContextLocNet's ``det(frame) - det(ctx)``), every trainable gradient
+    (res5's, shared by the three branches, through the loop pool's backward,
+    ``roi_loop_pool_gated_bwd_plain`` here) and the parameters after two
+    updates. The SAM rows' random branches are the JAX package's draws.
+
+    A max pool's gradient goes to its argmax, and the two packages' convs
+    round res5 differently (by about 1e-8 here), so a near-tied bin can
+    route its cotangent to another pixel (on this input one channel of one
+    pixel pair; the sums agree). res5's gradient is therefore compared in a
+    second pass whose res5 output carries the JAX package's values on the
+    port's own graph (``f - f.detach() + value``, exact); the other
+    gradients, the losses and the updates come from the port's own forward.
+
+    Then: at ``FREEZE_AT`` 5 the loop pool's Function records nothing to
+    save, and with ``TEST_BRANCH_IDX 1`` training still runs all three
+    branches (the losses are the same)."""
+    from wsovod_tpu.config import get_cfg as jax_get_cfg
+    from wsovod_tpu.models import build_model as jax_build_model
+    from wsovod_tpu.solver.build import build_optimizer as jax_build_optimizer
+
+    monkeypatch.setattr(flax.linen, "Dropout", _NoDropout)
+    jmodel = jax_build_model(_train_cfg(jax_get_cfg(), 4, MRRP_YAML))
+    params0 = jax.tree_util.tree_map(jnp.asarray, jax_reference(MRRP_YAML, -1)[1])
+    emb = embeddings()
+    batch = make_batch(2, gt=True)
+    jbatch = {k: jnp.asarray(v) for k, v in batch.items()}
+    model_rng = jax.random.PRNGKey(5)
+
+    def loss_fn(p, it):
+        losses = jmodel.apply(p, jbatch, train=True, iteration=it, rng=model_rng,
+                              embeddings=jnp.asarray(emb))
+        return sum(losses.values()), losses
+
+    grad_fn = jax.jit(jax.value_and_grad(loss_fn, has_aux=True))
+    (_, jlosses), jgrads0 = grad_fn(params0, jnp.asarray(3))
+    jgrads = {k: v.numpy() for k, v in state_dict_from_jax(jgrads0).items()}
+    jax_res5 = np.asarray(jax.jit(lambda p, x: jmodel.apply(
+        p, x, method=lambda m, x: m.backbone(m._normalize(x), train=True)))(
+            params0, jbatch["images"])["res5"])
+    n_sam = batch["sam_valid"].shape[1]
+    sam_branch = 1000 * np.asarray(jax.random.randint(jax.random.split(model_rng, 3)[1],
+                                                      (2, n_sam), 0, 3))
+    assert len(np.unique(sam_branch)) == 3
+    tbatch = {k: _t(v) for k, v in batch.items()}
+    p, r = 16 + n_sam, 3 * 8 * 8 * 6  # three anchor levels of 6 on an 8x8 res5
+
+    def port_model(freeze_at, test_branch_idx=None):
+        cfg = _train_cfg(get_cfg(), freeze_at, MRRP_YAML, test_branch_idx)
+        model = build_model(cfg, device="cpu", seed=None)
+        model.load_state_dict(state_dict_from_jax(params0), strict=True)
+        model.train()
+        model.roi_heads.box_head.dropout = 0.0
+        proposals = model._proposals
+
+        def with_jax_sam_branches(*args, **kwargs):
+            props, aux = proposals(*args, **kwargs)
+            level_ids = props.level_ids.clone()
+            level_ids[:, -n_sam:] = _t(sam_branch)
+            return props.replace(level_ids=level_ids), aux
+
+        model._proposals = with_jax_sam_branches
+        pooled = []
+        model.roi_heads.pooler.register_forward_hook(lambda m, i, o: pooled.append(o))
+        step = TrainStep(model, build_optimizer(cfg, model), cfg)
+        step.step = 3
+        return model, step, pooled
+
+    draws = _model_draws(model_rng, 2, p, r)
+
+    def forward(model, step):
+        return model.forward_train(tbatch, _t(emb), iteration=step.step, uniforms=_Replay(draws))
+
+    def check_grads(model, names, what):
+        grads = _grads_by_name(model)
+        assert {n for n in grads if n.startswith("backbone.")} == {
+            n for n in jgrads if n.startswith("backbone.res5.") and ".norm." not in n}
+        for n in names(grads):
+            atol = max(1e-4 * np.abs(jgrads[n]).max(), 1e-8)
+            np.testing.assert_allclose(grads[n], jgrads[n], rtol=1e-3, atol=atol,
+                                       err_msg=f"grad {n}, {what}")
+
+    # res5's gradient, on the JAX package's res5 values
+    model, step, pooled = port_model(4)
+    backbone = model.backbone.forward
+
+    def jax_values(x, train=False):
+        out = backbone(x, train=train)
+        out["res5"] = out["res5"] - out["res5"].detach() + _t(jax_res5)
+        return out
+
+    model.backbone.forward = jax_values
+    step.backward(forward(model, step))
+    check_grads(model, lambda grads: grads, "res5 with the JAX values")
+
+    model, step, pooled = port_model(4)
+    losses = forward(model, step)
+    assert sorted(losses) == sorted(jlosses)
+    for k, v in jlosses.items():
+        np.testing.assert_allclose(losses[k].item(), float(v), rtol=1e-4, err_msg=k)
+    # three rows per chunk through the Function, which kept no output (the
+    # gate, the validity mask, needs no gradient)
+    assert [tuple(o.shape[:2]) for o in pooled] == [(3, 2)]
+    assert type(pooled[0].grad_fn).__name__ == "RoILoopPoolGatedFunctionBackward"
+    assert pooled[0].grad_fn.saved_tensors[4] is None
+    step.backward(losses)
+    check_grads(model, lambda grads: [n for n in grads if not n.startswith("backbone.")],
+                "the port's forward")
+    step.update()
+
+    jcfg = _train_cfg(jax_get_cfg(), 4, MRRP_YAML)
+    tx = jax_build_optimizer(jcfg, params0["params"])
+
+    @jax.jit
+    def sgd(p, state, g):
+        updates, state = tx.update(g, state, p)
+        return optax.apply_updates(p, updates), state
+
+    opt_state = jax.jit(tx.init)(params0["params"])
+    params, g = params0, jgrads0
+    for it in (3, 4):
+        if it > 3:
+            _, g = grad_fn(params, jnp.asarray(it))
+        new, opt_state = sgd(params["params"], opt_state, g["params"])
+        params = {"params": new}
+    step.backward(forward(model, step))
+    assert step.update() and (step.step, step.updates) == (5, 2)
+    want = {k: v.numpy() for k, v in state_dict_from_jax(params).items()}
+    for n, v in _params_by_name(model).items():
+        np.testing.assert_allclose(v, want[n], rtol=1e-5, atol=1e-7, err_msg=f"param {n}")
+
+    frozen, frozen_step, pooled = port_model(5)
+    forward(frozen, frozen_step)
+    assert len(pooled) == 1 and pooled[0].shape[0] == 3 and pooled[0].grad_fn is None
+
+    one, one_step, pooled = port_model(4, test_branch_idx=1)
+    losses = forward(one, one_step)
+    assert pooled[0].shape[:2] == (3, 2)
+    for k, v in jlosses.items():
+        np.testing.assert_allclose(losses[k].item(), float(v), rtol=1e-4, err_msg=f"{k}, branch 1")
 
 
 def _check_clipping_and_accumulation():

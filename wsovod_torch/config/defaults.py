@@ -395,16 +395,14 @@ def check_supported(cfg: CN) -> None:
 def check_train_supported(cfg: CN) -> None:
     """``check_supported`` plus the keys that only act during training:
     raise ``NotImplementedError`` naming the first one that asks for a path
-    the port's trainer does not have. Training is ported for the plain
-    (non-MRRP) detector with the ``ROIPool`` pooler. ``WSOVOD.BBOX_REFINE``
-    is the trainer's to handle (``engine/trainer.py``)."""
+    the port's trainer does not have. Training is ported for every detector
+    ``check_supported`` admits: plain with ``ROIPool`` or ``ROILoopPool``,
+    MRRP at res5 with ``ROILoopPool``. ``WSOVOD.BBOX_REFINE`` is the
+    trainer's to handle (``engine/trainer.py``)."""
     check_supported(cfg)
     m = cfg.MODEL
     ir = cfg.WSOVOD.INSTANCE_REFINEMENT
     checks = [
-        ("MODEL.MRRP.MRRP_ON", m.MRRP.MRRP_ON, not m.MRRP.MRRP_ON, "MRRP training"),
-        ("MODEL.ROI_BOX_HEAD.POOLER_TYPE", m.ROI_BOX_HEAD.POOLER_TYPE,
-         m.ROI_BOX_HEAD.POOLER_TYPE == "ROIPool", "training with ROILoopPool"),
         ("WSOVOD.INSTANCE_REFINEMENT.REFINE_MIST", ir.REFINE_MIST, not ir.REFINE_MIST,
          "MIST mining"),
         ("MODEL.ROI_BOX_HEAD.BBOX_REG_LOSS_TYPE", m.ROI_BOX_HEAD.BBOX_REG_LOSS_TYPE,

@@ -11,8 +11,11 @@
 * MRRP (``resnet_wsl.py:157-243`` of the JAX package): every block of the
   MRRP stage (res5) runs once per branch, with the branch's dilation and the
   block's one set of weights, and the stage's output concatenates the
-  branches on the batch axis, branch-major: ``[n_br * B, h, w, C]``. With a
-  test branch index ``>= 0`` only that branch's dilation runs.
+  branches on the batch axis, branch-major: ``[n_br * B, h, w, C]``. In
+  training every branch runs; at inference with a test branch index
+  ``>= 0`` only that branch's dilation runs (``resnet_wsl.py:195``). With
+  res5 trainable its one set of weights takes the sum of the branches'
+  gradients.
 
 Parameter names follow d2's module layout (``stem.conv1``,
 ``res2.0.conv1.norm``, ``res4.0.shortcut``), so reference checkpoints load
@@ -93,11 +96,11 @@ _BLOCKS_PER_STAGE = {18: [2, 2, 2, 2], 34: [3, 4, 6, 3], 50: [3, 4, 6, 3],
 
 
 class WSRResNet(nn.Module):
-    """``forward(x [B, H, W, 3])`` -> ``{name: [B, h, w, C]}`` (NHWC views of
-    ``channels_last`` tensors) for the names in ``out_features``; with MRRP
-    the stages from ``mrrp_stage`` on give ``[n_br * B, h, w, C]``, where
-    ``n_br`` is ``len(mrrp_dilations)``, or 1 with ``mrrp_test_branch_idx
-    >= 0``."""
+    """``forward(x [B, H, W, 3], train)`` -> ``{name: [B, h, w, C]}`` (NHWC
+    views of ``channels_last`` tensors) for the names in ``out_features``;
+    with MRRP the stages from ``mrrp_stage`` on give ``[n_br * B, h, w,
+    C]``, where ``n_br`` is ``len(mrrp_dilations)``, or 1 at inference with
+    ``mrrp_test_branch_idx >= 0``."""
 
     def __init__(self, depth=18, stem_out_channels=64, res2_out_channels=64, num_groups=1,
                  width_per_group=64, res5_dilation=2, norm="FrozenBN",
@@ -110,10 +113,8 @@ class WSRResNet(nn.Module):
         self.out_features = tuple(out_features)
         self.res2_out_channels = res2_out_channels
         self.mrrp_stage = mrrp_stage if mrrp_on else None
-        self.branch_dilations = (
-            tuple(mrrp_dilations) if mrrp_test_branch_idx < 0
-            else (mrrp_dilations[mrrp_test_branch_idx],)
-        )
+        self.mrrp_dilations = tuple(mrrp_dilations)
+        self.mrrp_test_branch_idx = mrrp_test_branch_idx
         basic = depth in (18, 34)
         self.stem = BasicStem(3, stem_out_channels, norm)
         in_ch = stem_out_channels
@@ -167,15 +168,18 @@ class WSRResNet(nn.Module):
             out[name] = stride
         return {k: v for k, v in out.items() if k in self.out_features}
 
-    def forward(self, x: torch.Tensor) -> Dict[str, torch.Tensor]:
+    def forward(self, x: torch.Tensor, train: bool = False) -> Dict[str, torch.Tensor]:
         x = self.stem(x.permute(0, 3, 1, 2).contiguous(memory_format=torch.channels_last))
+        dilations = self.mrrp_dilations
+        if not train and self.mrrp_test_branch_idx >= 0:
+            dilations = (dilations[self.mrrp_test_branch_idx],)
         outputs = {}
         for name in self.stage_names:
             stage = getattr(self, name)
             if name == self.mrrp_stage:
-                branches = [x] * len(self.branch_dilations)
+                branches = [x] * len(dilations)
                 for block in stage:
-                    branches = [block(t, d) for t, d in zip(branches, self.branch_dilations)]
+                    branches = [block(t, d) for t, d in zip(branches, dilations)]
                 x = torch.cat(branches, dim=0)
             else:
                 x = stage(x)

@@ -13,7 +13,8 @@ label below).
 Under MRRP each proposal carries ``level_ids``, whose ``// 1000`` names the
 branch it pools from: RPN rows their branch, SAM rows branch 0 (the JAX
 package's inference, which passes no random key), or a random branch drawn
-from an explicit ``torch.Generator``.
+from an explicit ``torch.Generator`` (the trainer passes its own). In
+training every branch runs, whatever the test branch index.
 
 Batch convention (padded, static shapes, as the JAX package):
   images      [B, H, W, 3] raw pixels (BGR, the reference's pixel stats)
@@ -148,7 +149,7 @@ class GeneralizedRCNN_WSOVOD(nn.Module):
         package's), the ROI heads' and then the RPN's subsampling."""
         if uniforms is None:
             uniforms = generator_uniforms(generator)
-        features = self.backbone(self._normalize(batch["images"]))
+        features = self.backbone(self._normalize(batch["images"]), train=True)
         proposals, aux = self._proposals(features, batch, generator, train=True,
                                          iteration=iteration)
         daf = None

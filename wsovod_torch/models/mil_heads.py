@@ -11,8 +11,10 @@ validity mask:
   a weighted L1 box loss on foreground rows;
 * K-head inference: mean softmax and mean deltas.
 
-The miner's ContextLocNet variant (ROILoopPool's frame and context rows)
-belongs to the MRRP training slice."""
+With the ROILoopPool pooler the miner is ContextLocNet's: it reads the
+stacked ROI, frame and context features, its class scores from the ROI row
+and its detection scores from ``det(frame) - det(ctx)``, one ``det`` for
+both rows (``wsovod_tpu/models/mil_heads.py:61-72``)."""
 
 from __future__ import annotations
 
@@ -40,21 +42,29 @@ def masked_softmax(x: torch.Tensor, mask: torch.Tensor, dim: int) -> torch.Tenso
 
 class ObjectMiningOutputLayers(nn.Module):
     """The WSDDN object-mining head: ``cls`` and ``det`` linears from the
-    box feature to the classes, run in the feature's dtype."""
+    box feature to the classes, run in the feature's dtype; with
+    ``context``, ContextLocNet's."""
 
     def __init__(self, in_features: int, num_classes: int, mean_loss: bool = True,
-                 loss_weight: float = 1.0):
+                 loss_weight: float = 1.0, context: bool = False):
         super().__init__()
         self.num_classes = num_classes
         self.mean_loss = mean_loss
         self.loss_weight = loss_weight
+        self.context = context
         self.cls = Linear(in_features, num_classes)
         self.det = Linear(in_features, num_classes)
 
     def forward(self, x: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
-        """``x [B, P, F]``, ``valid [B, P]`` -> MIL scores ``[B, P, C]``
-        float32, exactly 0 on padded rows."""
-        c_logits, d_logits = self.cls(x).float(), self.det(x).float()
+        """``x [B, P, F]`` (with ``context``, the ROI, frame and context
+        rows stacked, ``[3, B, P, F]``), ``valid [B, P]`` -> MIL scores
+        ``[B, P, C]`` float32, exactly 0 on padded rows."""
+        if self.context:
+            roi, frame, ctx = x.unbind(0)
+            c_logits = self.cls(roi).float()
+            d_logits = (self.det(frame) - self.det(ctx)).float()
+        else:
+            c_logits, d_logits = self.cls(x).float(), self.det(x).float()
         if self.num_classes == 1:  # the reference appends a zero column first
             c_logits = F.pad(c_logits, (0, 1))
             d_logits = F.pad(d_logits, (0, 1))

@@ -15,13 +15,14 @@ top-1 mining becomes the RPN's pseudo GT. The SAM box refiner is not ported
 (``engine/trainer.py`` turns ``WSOVOD.BBOX_REFINE`` off), so it is the
 identity here, as in the JAX package without a SAM embedding.
 
-With the ``ROILoopPool`` pooler only the ROI row is pooled and run through
-the DAN. At inference the JAX package pools all three rows (ROI, frame,
-context), runs fc1 and fc2 on each, adds the data-aware vector to each, and
-then keeps only the ROI row (``roi_feats, _ = ...`` at
-``roi_heads.py:518-520``): the frame and context rows feed only the
-training-time object miner. The DAN works row by row, so the ROI row's
-result is the same."""
+With the ``ROILoopPool`` pooler, training pools all three rows (ROI, frame,
+context), runs the DAN on them as one ``[3, B, N]`` batch of rows, and adds
+the data-aware vector to each: the object miner (ContextLocNet's) reads the
+stack, the refineries the ROI row (``wsovod_tpu/models/roi_heads.py:305-310,
+342``). Inference pools and runs only the ROI row: the JAX package pools all
+three there too, then keeps only the ROI row (``roi_feats, _ = ...`` at
+``roi_heads.py:518-520``); the DAN works row by row, so the ROI row's result
+is the same."""
 
 from __future__ import annotations
 
@@ -87,7 +88,7 @@ class WSOVODROIHeads(nn.Module):
         )
         self.object_miner = ObjectMiningOutputLayers(
             self.box_head.output_dim, num_classes, mean_loss=object_mining_mean_loss,
-            loss_weight=object_mining_weight,
+            loss_weight=object_mining_weight, context=pooler.pooler_type == "ROILoopPool",
         )
         self.box_refinery = nn.ModuleList(
             InstanceRefinementOutputLayers(
@@ -105,24 +106,31 @@ class WSOVODROIHeads(nn.Module):
 
     def _pooled_box_features(self, features: Dict[str, torch.Tensor], proposals: Instances,
                              data_aware_features: Optional[torch.Tensor], train: bool = False,
-                             generator: Optional[torch.Generator] = None) -> torch.Tensor:
+                             generator: Optional[torch.Generator] = None
+                             ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """``(roi [B, P, F], the object miner's input)``: the data-aware
+        vector added, the miner's input the ROI row again or, for a
+        ROILoopPool in training, the ROI, frame and context rows stacked
+        ``[3, B, P, F]``."""
         feat = features[self.in_features[0]]
         valid = proposals.valid
         gate = (proposals.objectness_logits.float() + 1.0) * valid.float()
         pool_gate, row_gate = (valid.float(), gate) if train else (gate, None)
+        rows = 3 if train and self.object_miner.context else 1
         chunks = self.pooler.chunks(feat, proposals.proposal_boxes, pool_gate, valid, self.c_take,
-                                    level_ids=proposals.fields().get("level_ids"))
-        box_features = self.box_head(chunks, row_gate=row_gate, generator=generator)  # [B, P, F]
+                                    level_ids=proposals.fields().get("level_ids"), rows=rows)
+        # [(3,) B, P, F]
+        box_features = self.box_head(chunks, row_gate=row_gate, generator=generator)
         if data_aware_features is not None:
             box_features = box_features + data_aware_features[:, None, :].to(box_features.dtype)
-        return box_features
+        return (box_features[0] if rows == 3 else box_features), box_features
 
     def inference(self, features: Dict[str, torch.Tensor], proposals: Instances,
                   image_sizes: torch.Tensor, data_aware_features: Optional[torch.Tensor] = None,
                   classifier: Optional[torch.Tensor] = None,
                   embeddings: Optional[torch.Tensor] = None,
                   append_background: bool = True) -> Tuple[Detections, torch.Tensor, torch.Tensor]:
-        roi_feats = self._pooled_box_features(features, proposals, data_aware_features)
+        roi_feats, _ = self._pooled_box_features(features, proposals, data_aware_features)
         scores_K, deltas_K = [], []
         for head in self.box_refinery:
             s, d = head(roi_feats, classifier=classifier, append_background=append_background,
@@ -150,15 +158,13 @@ class WSOVODROIHeads(nn.Module):
         ``gt_classes``/``gt_valid [B, G]`` are the image's instance classes,
         reduced to image-level labels; ``uniforms`` draws the proposal
         subsampling, ``generator`` the dropout masks."""
-        if self.pooler.pooler_type != "ROIPool":
-            raise NotImplementedError("training with the ROILoopPool pooler (MRRP) is not ported")
         c = self.num_classes
         oh, _, present = get_image_level_gt(gt_classes, gt_valid, c)
         valid = proposals.valid
         boxes = proposals.proposal_boxes.float()
-        roi_feats = self._pooled_box_features(features, proposals, data_aware_features, train=True,
-                                              generator=generator)
-        mil_scores = self.object_miner(roi_feats, valid)
+        roi_feats, miner_feats = self._pooled_box_features(
+            features, proposals, data_aware_features, train=True, generator=generator)
+        mil_scores = self.object_miner(miner_feats, valid)
         losses = dict(self.object_miner.losses(mil_scores, oh))
         weights = self.object_miner.predict_probs_img(mil_scores).detach()  # mining weights
         prev_scores = mil_scores.detach()  # the miner has no background column

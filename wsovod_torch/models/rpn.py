@@ -8,10 +8,11 @@ subsamples ``BATCH_SIZE_PER_IMAGE`` anchors per image and returns the BCE
 and L1 losses. Proposals are made from detached logits and deltas.
 
 Under MRRP the backbone feature ``[n_br * B, h, w, C]`` is split back into
-``n_br`` per-branch levels (``n_br`` is 1 with a test branch index ``>= 0``,
-the JAX package's ``mrrp_fast``), one anchor level per branch (all at the
-feature's stride), one head shared by all levels, then the group top-k of
-``find_top_rpn_proposals_group``."""
+``n_br`` per-branch levels (in training all ``NUM_BRANCH``; at inference 1
+with a test branch index ``>= 0``, the JAX package's ``mrrp_fast``), one
+anchor level per branch (all at the feature's stride), one head shared by
+all levels, then the group top-k of ``find_top_rpn_proposals_group``. The
+train losses run over the anchors of all levels."""
 
 from __future__ import annotations
 
@@ -78,7 +79,8 @@ class WSOVODRPN_V2(nn.Module):
                  smooth_l1_beta=0.0, loss_weight_cls=1.0, loss_weight_loc=1.0):
         super().__init__()
         self.mrrp_on = mrrp_on
-        self.n_branch = mrrp_num_branch if mrrp_test_all else 1
+        self.mrrp_num_branch = mrrp_num_branch
+        self.mrrp_test_all = mrrp_test_all
         self.in_features = tuple(in_features)
         self.nms_thresh = nms_thresh
         self.min_box_size = min_box_size
@@ -110,7 +112,8 @@ class WSOVODRPN_V2(nn.Module):
         ``(proposals, RPNAux)``."""
         feats = [features[f] for f in self.in_features]
         if self.mrrp_on:
-            feats = [c for f in feats for c in torch.chunk(f, self.n_branch, dim=0)]
+            n_br = self.mrrp_num_branch if (train or self.mrrp_test_all) else 1
+            feats = [c for f in feats for c in torch.chunk(f, n_br, dim=0)]
         logits_l, deltas_l = self.rpn_head(feats)
         grid_sizes = [(f.shape[1], f.shape[2]) for f in feats]
         anchors_l = self.anchor_generator.grid_anchors(grid_sizes, feats[0].device)

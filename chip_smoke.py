@@ -17,21 +17,31 @@ Phases, in order; any failure exits nonzero before the last line is printed:
    the MRRP slice's shapes (three branch copies, ``[6, 86, 132, 2048]``, the
    same ROIs, each on a branch drawn from a seed): rows 1 and 3, bfloat16
    and float32, one or two chunks at full N and every chunk at a reduced N,
-   bit-for-bit; ``rows=1`` equals row 0 of ``rows=3``; both times.
+   bit-for-bit; ``rows=1`` equals row 0 of ``rows=3``; both times. Then the
+   gated ROIPool routed by branch (a per-ROI source copy) against its plain
+   version at the MRRP VGG16 slice's shapes (plain5's three copies ``[6,
+   85, 131, 512]``, 5024 ROIs per image on seeded branches), bfloat16 and
+   float32, bit for bit; both times.
 4. The plain slice: ``build_model`` on ``configs/COCO-Detection/
    WSOVOD_WSR_50_DC5_1x.yaml``; 5. the MRRP slice, the same on
-   ``WSOVOD_MRRP_WSR_50_DC5_1x.yaml`` (three branches at test). Each with TTA
+   ``WSOVOD_MRRP_WSR_50_DC5_1x.yaml`` (three branches at test); then the
+   ``vgg`` and ``mrrp-vgg`` slices on ``WSOVOD_V_16_DC5_1x.yaml`` and
+   ``WSOVOD_MRRP_V_16_DC5_1x.yaml`` (``RPN.IN_FEATURES`` set to
+   ``["plain5"]``, which the YAMLs leave at the base's ``res5``; plain5 is
+   one 512-channel chunk, ``[B, 85, 131, 512]`` per branch). Each with TTA
    off, bf16 compute, seeded random parameters, B=2 synthetic 688x1056
    images with 4000 SAM proposals each and an 80x512 class-embedding matrix,
    through ``inference_on_dataset``. Checks: the launch counts, set to 0
    just before the run and read just after, rose by one per channel chunk
-   and batch for the slice's kernel and stayed 0 for the other; detections
-   are finite and every image has some; the chunks the model pooled on the
-   first batch equal the plain version called directly on the same card
-   tensors; under MRRP the RPN's proposals come from more than one branch.
-   Prints images/s, the per-stage wall times, peak memory, and the device's
-   busy share and top device times of one batch under ``torch.profiler``
-   (trace and kernel table in ``profiles/``).
+   and batch for the slice's kernel (the gated ROIPool, routed by branch
+   under the MRRP VGG16) and stayed 0 for the other; detections are finite
+   and every image has some; the chunks the model pooled on the first batch
+   equal the plain version called directly on the same card tensors; under
+   MRRP the RPN's proposals come from more than one branch. Prints
+   images/s, the per-stage wall times, peak memory, the RPN input feature's
+   standard deviation per copy, and the device's busy share and top device
+   times of one batch under ``torch.profiler`` (trace and kernel table in
+   ``profiles/``).
 6. The gated ROIPool's backward kernel against its plain version at the
    training shape (res5 ``[4, 100, 152, 2048]`` of B=4 800x1216 images,
    5024 ROIs per image from the same box mix plus edge rows, a post-ReLU map
@@ -43,10 +53,12 @@ Phases, in order; any failure exits nonzero before the last line is printed:
    2048]``, the same box mix routed to random branches plus edge, 2-pixel
    and gate-0 rows, a post-ReLU map on a 0.25 grid), bfloat16 and float32,
    both cotangents, one chunk: timed at full N, compared on the first 1024
-   ROIs per image; its time, the plain version's and the bound.
+   ROIs per image; its time, the plain version's and the bound. Then the
+   gated ROIPool's backward routed by branch, the same way at the MRRP
+   VGG16 training shape (plain5's three copies ``[12, 99, 151, 512]``).
 8. The ``train-plain`` slice: ``WSOVODTrainer`` on ``WSOVOD_WSR_50_DC5_1x.yaml``
    at full width (``FREEZE_AT`` 5 as shipped, BBOX_REFINE off for want of a
-   SAM checkpoint, the recipe scaled to one card: ``BASE_LR`` 0.0025,
+   SAM checkpoint, the recipe scaled to one card: ``BASE_LR`` / 4,
    ``ITER_SIZE`` 4), B=4 synthetic 800x1216 images with 1-4 image-level
    classes, 4000 SAM + 1024 RPN proposals, 8 iterations (2 updates). Checks:
    every loss present and finite on the first and last iteration; frozen
@@ -70,8 +82,18 @@ Phases, in order; any failure exits nonzero before the last line is printed:
    ``FREEZE_AT`` 4 the loop backward launched 4 times per iteration, the
    model's first launch re-run on a subset of its ROIs against the plain
    version.
-11. The card line, one JSON line of kernel records (with each kernel's bound
-   on this card computed from this run's inputs), and the result line.
+11. The ``train-mrrp-vgg`` and ``train-mrrp-vgg-plain5`` slices: the same
+   on ``WSOVOD_MRRP_V_16_DC5_1x.yaml`` (plain5 three times, the gated
+   ROIPool routed by branch, one chunk per iteration), ``FREEZE_AT`` 5 and
+   4, 4 iterations each. Under ``FREEZE_AT`` 4 the JAX package's freeze
+   stages train plain1 (no stage rule matches it: stage 5) and plain5, so
+   the backward runs through the whole backbone and the routed backward
+   launches once per iteration, its first launch re-run against the plain
+   version.
+12. The card line, one JSON line of kernel records (with each kernel's bound
+   on this card computed from this run's inputs; the routed pool and its
+   backward, the same kernels with a source copy per ROI, have records of
+   their own), and the result line.
 
 It imports no JAX and nothing of ``wsovod_tpu``.
 """
@@ -92,12 +114,13 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 CONFIGS = os.path.join(REPO, "configs", "COCO-Detection")
 PLAIN_CONFIG = os.path.join(CONFIGS, "WSOVOD_WSR_50_DC5_1x.yaml")
 MRRP_CONFIG = os.path.join(CONFIGS, "WSOVOD_MRRP_WSR_50_DC5_1x.yaml")
+VGG_CONFIG = os.path.join(CONFIGS, "WSOVOD_V_16_DC5_1x.yaml")
+MRRP_VGG_CONFIG = os.path.join(CONFIGS, "WSOVOD_MRRP_V_16_DC5_1x.yaml")
 B, H, W, S = 2, 688, 1056, 4000  # images, test resolution, SAM proposals per image
 N_ROIS = 1024 + S  # RPN post-NMS top-k + SAM
 FEAT = (B, 86, 132, 2048)  # res5 at stride 8
 N_BRANCH = 3  # MRRP branches at test
 C_TAKE = 512
-N_CHUNKS = FEAT[3] // C_TAKE
 N_BATCHES = 3  # timed batches of B images, per slice
 REDUCED_N = 256  # ROIs per image where every chunk is checked against the plain pools
 TB, TH, TW = 4, 800, 1216  # training: images per iteration and their size
@@ -106,6 +129,11 @@ TRAIN_FEAT_MRRP = (N_BRANCH * TB,) + TRAIN_FEAT[1:]  # the three branch copies o
 TRAIN_ITERS, RES5_ITERS = 8, 4  # iterations of the two plain train slices (ITER_SIZE 4)
 MRRP_ITERS, MRRP_RES5_ITERS = 4, 4  # iterations of the two MRRP train slices
 LOOP_BWD_PLAIN_N = 1024  # ROIs per image where the loop backward meets its plain version
+# VGG16-DC5's plain5 at stride 8: plain4's unpadded stride-1 pool takes one
+# pixel off H and W; one 512-channel chunk
+VGG_FEAT = (B, 85, 131, 512)
+VGG_TRAIN_FEAT = (TB, 99, 151, 512)
+VGG_ITERS = 4  # iterations of each VGG train slice
 PROFILE_DIR = os.path.join(REPO, "profiles")  # git-ignored
 # NVIDIA H100 SXM data sheet: HBM rate, and the float32 rate outside the
 # tensor cores (the pool kernels compare in float32)
@@ -325,6 +353,54 @@ def phase_loop_kernel(torch, dev, rp):
             "bound_ms": bound_ms, "bound_by": bound_by}
 
 
+def routed_inputs(rng, b, w, h):
+    """``pool_inputs`` plus each ROI's source copy ``branch * b + image``,
+    the branch drawn from ``rng`` (every branch read)."""
+    rois, gate = pool_inputs(rng, b, w, h)
+    branch = rng.randint(0, N_BRANCH, (b, N_ROIS))
+    branch[:, :N_BRANCH] = np.arange(N_BRANCH)
+    return rois, gate, (branch * b + np.arange(b)[:, None]).astype(np.int32)
+
+
+def phase_routed_kernel(torch, dev, rp):
+    """The gated ROIPool routed by branch (``src``) vs its plain version at
+    the MRRP VGG16 slice's shapes: plain5's three branch copies ``[6, 85,
+    131, 512]``, the slice's ROIs, each on a branch drawn from a seed;
+    bfloat16 and float32, bit for bit; both times and the bound."""
+    rois, gate, src = routed_inputs(np.random.RandomState(5), B, W, H)
+    rois_t, gate_t, src_t = (torch.from_numpy(a).to(dev) for a in (rois, gate, src))
+    g = torch.Generator(device=dev).manual_seed(5)
+    feat32 = torch.randn((N_BRANCH * B,) + VGG_FEAT[1:], generator=g, device=dev)
+    max_err, times = 0.0, {}
+    for dtype in (torch.bfloat16, torch.float32):
+        feat = feat32.to(dtype).contiguous()
+        got = rp.roi_pool_gated(feat, rois_t, gate_t, 0, C_TAKE, 7, 0.125, src_t)
+        want, t = timed(lambda: rp.roi_pool_gated_plain(feat, rois_t, gate_t, 0, C_TAKE, 7, 0.125,
+                                                        max_elems=1 << 28, src=src_t))
+        err = (got.float() - want.float()).abs().max().item()
+        max_err = max(max_err, err)
+        if not torch.equal(got, want):
+            raise AssertionError(f"routed roi_pool_gated != plain ({dtype}): max |err| {err}")
+        if dtype == torch.bfloat16:
+            times["plain_ms"] = t
+            times["ms"] = cuda_ms(lambda: rp.roi_pool_gated(feat, rois_t, gate_t, 0, C_TAKE, 7,
+                                                            0.125, src_t), 20)
+        log(f"roi_pool_gated routed == plain, {str(dtype)[6:]}, {N_ROIS} ROIs per image: exact")
+    region = rp.round_region(rois_t, 0.125)
+    pixels = int(bin_pixels(rp, region, None, 7, VGG_FEAT[1], VGG_FEAT[2]).sum()) * C_TAKE
+    copies = int(torch.unique(src_t).numel())
+    out_elems = B * N_ROIS * 49 * C_TAKE
+    in_bytes = (copies * VGG_FEAT[1] * VGG_FEAT[2] * C_TAKE * 2 + rois_t.numel() * 4
+                + gate_t.numel() * 4 + src_t.numel() * 4)
+    bound_ms, bound_by = bound(pixels, out_elems, in_bytes, out_elems * 2)
+    log(f"roi_pool_gated routed bf16 {[N_BRANCH * B] + list(VGG_FEAT[1:])} x {N_ROIS} ROIs, one "
+        f"512-channel chunk: kernel {times['ms']:.3f} ms, plain {times['plain_ms']:.3f} ms, bound "
+        f"{bound_ms:.3f} ms ({bound_by}: {(in_bytes + out_elems * 2) / 1e6:.1f} MB, "
+        f"{pixels / 1e9:.3f} G compares)")
+    return {"max_abs_err": max_err, "ms": times["ms"], "plain_ms": times["plain_ms"],
+            "bound_ms": bound_ms, "bound_by": bound_by}
+
+
 class DetectionCounter:
     """Evaluator that counts detections per image and checks they are finite."""
 
@@ -424,21 +500,42 @@ def profile_batch(torch, model, batch, emb, out_dir, tag):
         log(f"  {getattr(e, dev_attr) / 1e3:10.3f} ms  x{e.count:<6d} {e.key[:90]}")
 
 
-def run_slice(torch, dev, rp, tag, config, emb):
-    """Drive one slice through ``inference_on_dataset`` and check it (see
-    the module docstring); returns the slice kernel's launch count."""
+def load_cfg(config):
+    """The config of a slice: TTA off, bf16 compute; the VGG16 YAMLs'
+    ``RPN.IN_FEATURES`` set to ``["plain5"]`` (they inherit the base's
+    ``res5``, which a VGG16 lacks: ``check_supported`` refuses it by
+    name)."""
     from wsovod_torch import get_cfg
-    from wsovod_torch.engine.evaluator import inference_on_dataset
-    from wsovod_torch.models import build_model
 
     cfg = get_cfg()
     cfg.merge_from_file(config)
     cfg.TEST.AUG.ENABLED = False
     cfg.TPU.COMPUTE_DTYPE = "bfloat16"
-    loop = cfg.MODEL.ROI_BOX_HEAD.POOLER_TYPE == "ROILoopPool"
-    counter, other = ("LOOP_LAUNCHES", "LAUNCHES") if loop else ("LAUNCHES", "LOOP_LAUNCHES")
+    if "vgg" in cfg.MODEL.BACKBONE.NAME:
+        cfg.MODEL.RPN.IN_FEATURES = ["plain5"]
+    return cfg
+
+
+def pool_kind(model):
+    """``(loop, mrrp, n_chunks)`` of a model's pooler: ROILoopPool or the
+    gated ROIPool, MRRP or not, and channel chunks per pooled feature."""
+    heads = model.roi_heads
+    channels = model.backbone.output_channels()[heads.in_features[0]]
+    return (heads.pooler.pooler_type == "ROILoopPool", model.mrrp_num_branch > 0,
+            channels // heads.c_take)
+
+
+def run_slice(torch, dev, rp, tag, config, emb):
+    """Drive one slice through ``inference_on_dataset`` and check it (see
+    the module docstring); returns the slice kernel's launch count."""
+    from wsovod_torch.engine.evaluator import inference_on_dataset
+    from wsovod_torch.models import build_model
+
+    cfg = load_cfg(config)
     t0 = time.perf_counter()
     model = build_model(cfg, device=dev, seed=0)
+    loop, mrrp, n_chunks = pool_kind(model)
+    counter, other = ("LOOP_LAUNCHES", "LAUNCHES") if loop else ("LAUNCHES", "LOOP_LAUNCHES")
     log(f"{tag} model: {os.path.basename(config)}, "
         f"{sum(p.numel() for p in model.parameters()) / 1e6:.3f}M parameters, built in "
         f"{time.perf_counter() - t0:.3f} s")
@@ -447,15 +544,18 @@ def run_slice(torch, dev, rp, tag, config, emb):
     inference_on_dataset(model, warm, DetectionCounter(), embeddings=emb)  # warm-up
     torch.cuda.synchronize()
 
-    captured, rpn_out = [], []
+    captured, rpn_out, feat_std, feat_shape = [], [], [], []
 
     def capture(mod, inp, out):
-        if len(captured) < N_CHUNKS:  # the first batch's chunks
+        if len(captured) < n_chunks:  # the first batch's chunks
             captured.append((inp, out))
 
     def capture_rpn(mod, inp, out):
         if not rpn_out:
             rpn_out.append(out)
+            f = inp[0][mod.in_features[0]].float()
+            feat_std.extend(f.flatten(1).std(dim=1).tolist())
+            feat_shape.extend(f.shape)
 
     hooks = [model.roi_heads.pooler.register_forward_hook(capture),
              model.proposal_generator.register_forward_hook(capture_rpn)]
@@ -473,35 +573,38 @@ def run_slice(torch, dev, rp, tag, config, emb):
     n_images = B * N_BATCHES
     peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
 
-    if launches != N_CHUNKS * N_BATCHES or other_launches != 0:
-        raise AssertionError(f"{tag}: {counter} {launches} (expected {N_CHUNKS * N_BATCHES}), "
+    if launches != n_chunks * N_BATCHES or other_launches != 0:
+        raise AssertionError(f"{tag}: {counter} {launches} (expected {n_chunks * N_BATCHES}), "
                              f"{other} {other_launches} (expected 0)")
     if len(counts) != n_images or min(counts.values()) <= 0:
         raise AssertionError(f"{tag}: images without detections: {counts}")
-    if len(captured) != N_CHUNKS:
+    if len(captured) != n_chunks:
         raise AssertionError(f"{tag}: captured {len(captured)} pooled chunks")
     max_err = 0.0
     for k, ((feat, boxes, gate, c_base, c_take, src, rows), out) in enumerate(captured):
         assert rows == 1, rows
         assert out.shape == (B, N_ROIS, 7, 7, C_TAKE), out.shape
+        assert feat.shape[0] == (N_BRANCH * B if mrrp else B), feat.shape
         if loop:
-            assert feat.shape[0] == N_BRANCH * B, feat.shape
             want = rp.roi_loop_pool_gated_plain(feat, boxes, gate, src, c_base, c_take, 1, 7, 0.125,
                                                 1.8, max_elems=1 << 28)[0]
         else:
+            assert (src is not None) == mrrp  # routed by branch under MRRP only
             want = rp.roi_pool_gated_plain(feat, boxes, gate, c_base, c_take, 7, 0.125,
-                                           max_elems=1 << 28)
+                                           max_elems=1 << 28, src=src)
         max_err = max(max_err, (out.float() - want.float()).abs().max().item())
         if not torch.equal(out, want):
             raise AssertionError(f"{tag}: model chunk {k} differs from the plain pool")
     rpn = rpn_out[0]
     branches = torch.unique(torch.div(rpn.level_ids[rpn.valid], 1000, rounding_mode="floor")).tolist()
-    if loop and len(branches) < 2:
+    if mrrp and len(branches) < 2:
         raise AssertionError(f"{tag}: RPN proposals from branches {branches} only")
     log(f"{tag} slice: {n_images} images in {dt:.3f} s = {n_images / dt:.3f} images/s (B={B}, "
         f"{H}x{W}, {N_ROIS} ROIs/image, bf16); detections/image min {min(counts.values())} "
         f"max {max(counts.values())}; {counter} {launches}; first batch's {len(captured)} pooled "
-        f"chunks == plain; RPN proposals from branches {branches}; peak memory {peak_gb:.3f} GB")
+        f"chunks == plain; RPN proposals from branches {branches} ({int(rpn.valid.sum())} valid of "
+        f"{rpn.valid.numel()}); the RPN's input feature {feat_shape}, std per "
+        f"copy {[round(v, 3) for v in feat_std]}; peak memory {peak_gb:.3f} GB")
     batch0 = {k: torch.as_tensor(batches[0][k]).to(dev)
               for k in ("images", "image_sizes", "sam_boxes", "sam_scores", "sam_valid")}
     st = stage_times(torch, model, batch0, emb)
@@ -683,6 +786,90 @@ def loop_bwd_bound(torch, rp, rois_t, gate_t, src_t):
     return bound_ms, bound_by, in_bytes + chunk_elems * 4, 2 * pixels + g_elems
 
 
+def phase_routed_bwd_kernel(torch, dev, rp):
+    """The gated ROIPool's backward routed by branch vs its plain version at
+    the MRRP VGG16 training shape: plain5's three branch copies ``[12, 99,
+    151, 512]`` (a post-ReLU map on a 0.25 grid, so bins tie, many at 0),
+    5024 ROIs per image from the box mix routed to random branches, with
+    overhanging, degenerate, invalid and gate-0 rows; bfloat16 and float32,
+    both cotangents. Timed at full N, compared on the first
+    ``LOOP_BWD_PLAIN_N`` ROIs per image, to the ROIPool backward's tolerance
+    (float32 atomics: rtol 1e-5 or one bfloat16 step, plus 1e-5 max
+    |plain|; the gate cotangent rtol 1e-4)."""
+    rng = np.random.RandomState(6)
+    rois, gate, src = routed_inputs(rng, TB, TW, TH)
+    rois[:, 6] = [100, 100, 500, 400]
+    gate[:, 6] = 0.0  # a valid box with gate 0
+    rois_t, gate_t, src_t = (torch.from_numpy(a).to(dev) for a in (rois, gate, src))
+    g = torch.Generator(device=dev).manual_seed(6)
+    shape = (N_BRANCH * TB,) + VGG_TRAIN_FEAT[1:]
+    base = torch.round(torch.relu(torch.randn(shape, generator=g, device=dev)) * 4) / 4
+    n = LOOP_BWD_PLAIN_N
+    r_n, g_n, s_n = (t[:, :n].contiguous() for t in (rois_t, gate_t, src_t))
+    max_err, times = 0.0, {}
+    for dtype, rtol in ((torch.bfloat16, 2.0 ** -7), (torch.float32, 1e-5)):
+        feat = base.to(dtype).contiguous()
+        cot = torch.randn((TB, N_ROIS, 7, 7, C_TAKE), generator=g, device=dev, dtype=dtype)
+        name = str(dtype)[6:]
+        if dtype == torch.bfloat16:  # the training path's call: the feature cotangent only
+            times["ms"] = cuda_ms(lambda: rp.roi_pool_gated_bwd(
+                feat, rois_t, gate_t, None, cot, 0, C_TAKE, 7, 0.125, need_gate=False,
+                src=src_t), 10)
+        cot_n = cot[:, :n].contiguous()
+        del cot
+        out = rp.roi_pool_gated(feat, r_n, g_n, 0, C_TAKE, 7, 0.125, s_n)
+        got_f, got_g = rp.roi_pool_gated_bwd(feat, r_n, g_n, out, cot_n, 0, C_TAKE, 7, 0.125,
+                                             src=s_n)
+        if dtype == torch.bfloat16:
+            times["ms_at_plain_n"] = cuda_ms(lambda: rp.roi_pool_gated_bwd(
+                feat, r_n, g_n, None, cot_n, 0, C_TAKE, 7, 0.125, need_gate=False, src=s_n), 10)
+        (want_f, _), t = timed(lambda: rp.roi_pool_gated_bwd_plain(
+            feat, r_n, g_n, None, cot_n, 0, C_TAKE, 7, 0.125, need_gate=False,
+            max_elems=1 << 28, src=s_n))
+        _, want_g = rp.roi_pool_gated_bwd_plain(feat, r_n, g_n, out, cot_n, 0, C_TAKE, 7, 0.125,
+                                                need_feat=False, src=s_n)
+        if dtype == torch.bfloat16:
+            times["plain_ms"] = t
+        err = (got_f.float() - want_f.float()).abs()
+        max_err = max(max_err, err.max().item())
+        scale = want_f.float().abs().max()
+        if not (scale > 0 and (err <= rtol * want_f.float().abs() + 1e-5 * scale).all()):
+            raise AssertionError(f"routed roi_pool_gated_bwd g_feat != plain ({name}): max |err| "
+                                 f"{err.max().item()}, max |plain| {scale.item()}")
+        if not all(bool(want_f[k].any()) for k in range(shape[0])):
+            raise AssertionError(f"routed roi_pool_gated_bwd: a copy got no cotangent ({name})")
+        gerr = (got_g - want_g).abs()
+        if not (gerr <= 1e-4 * want_g.abs() + 1e-4 * want_g.abs().max()).all():
+            raise AssertionError(f"routed roi_pool_gated_bwd g_gate != plain ({name}): max |err| "
+                                 f"{gerr.max().item()}")
+        log(f"roi_pool_gated_bwd routed ~= plain, {name}: {n} ROIs per image, both cotangents "
+            f"(rtol {rtol:g}); plain call {t / 1e3:.3f} s")
+        del feat, cot_n, out, got_f, got_g, want_f, want_g, err
+        torch.cuda.empty_cache()
+    # least time of the training call at full N: read g, the chunks of the
+    # copies some ROI reads, rois, gates and sources once, write their float32
+    # scratch once; a max and a tie test per bin pixel and channel of the ROIs
+    # of nonzero gate, a gate multiply per cotangent element
+    h, w = VGG_TRAIN_FEAT[1], VGG_TRAIN_FEAT[2]
+    live = (gate_t != 0)[..., None, None]
+    pixels = int((bin_pixels(rp, rp.round_region(rois_t, 0.125), None, 7, h, w) * live).sum())
+    pixels *= C_TAKE
+    copies = int(torch.unique(src_t).numel())
+    g_elems = TB * N_ROIS * 49 * C_TAKE
+    chunk_elems = copies * h * w * C_TAKE
+    in_bytes = (g_elems * 2 + chunk_elems * 2 + rois_t.numel() * 4 + 2 * gate_t.numel() * 4
+                + src_t.numel() * 4)
+    bound_ms, bound_by = bound(2 * pixels, g_elems, in_bytes, chunk_elems * 4)
+    log(f"roi_pool_gated_bwd routed bf16 {list(shape)} x {N_ROIS} ROIs, one 512-channel chunk, "
+        f"feature cotangent: kernel {times['ms']:.3f} ms at {N_ROIS} ROIs per image, "
+        f"{times['ms_at_plain_n']:.3f} ms at {n}; plain {times['plain_ms']:.3f} ms at {n}; bound "
+        f"{bound_ms:.3f} ms at {N_ROIS} ({bound_by}: {(in_bytes + chunk_elems * 4) / 1e6:.1f} MB, "
+        f"{(2 * pixels + g_elems) / 1e9:.3f} G operations)")
+    return {"max_abs_err": max_err, "ms": times["ms"], "plain_ms": times["plain_ms"],
+            "bound_ms": bound_ms, "bound_by": bound_by, "n_rois": N_ROIS, "plain_n_rois": n,
+            "ms_at_plain_n": times["ms_at_plain_n"]}
+
+
 def train_batches(n, seed):
     """``n`` synthetic training batches: B=4 800x1216 images, 4000 SAM
     proposals each, 1-4 distinct image-level classes of 80 per image."""
@@ -791,13 +978,9 @@ def run_train(torch, dev, rp, tag, config, freeze_at, iters, emb, resume_check):
     """Drive ``WSOVODTrainer.train()`` on ``config`` for ``iters``
     iterations and check it (see the module docstring); returns ``(pool
     launches, backward launches)`` of the config's pooler."""
-    from wsovod_torch import get_cfg
     from wsovod_torch.engine.trainer import WSOVODTrainer
 
-    cfg = get_cfg()
-    cfg.merge_from_file(config)
-    cfg.TEST.AUG.ENABLED = False
-    cfg.TPU.COMPUTE_DTYPE = "bfloat16"
+    cfg = load_cfg(config)
     cfg.MODEL.WEIGHTS = ""  # seeded random weights
     cfg.MODEL.BACKBONE.FREEZE_AT = freeze_at
     cfg.SOLVER.MAX_ITER = iters
@@ -810,7 +993,9 @@ def run_train(torch, dev, rp, tag, config, freeze_at, iters, emb, resume_check):
     t0 = time.perf_counter()
     trainer = WSOVODTrainer(cfg, iter(batches), embeddings=emb, device=dev)
     tc = trainer.cfg
-    if (tc.WSOVOD.ITER_SIZE, tc.SOLVER.BASE_LR, tc.WSOVOD.BBOX_REFINE.ENABLE) != (4, 0.0025, False):
+    # the recipe's 4 workers on one card: ITER_SIZE x4, BASE_LR / 4
+    if (tc.WSOVOD.ITER_SIZE, tc.SOLVER.BASE_LR, tc.WSOVOD.BBOX_REFINE.ENABLE) != (
+            4, cfg.SOLVER.BASE_LR / 4, False):
         raise AssertionError(f"{tag}: ITER_SIZE {tc.WSOVOD.ITER_SIZE}, BASE_LR {tc.SOLVER.BASE_LR}, "
                              f"BBOX_REFINE {tc.WSOVOD.BBOX_REFINE.ENABLE}")
     model = trainer.model
@@ -819,7 +1004,8 @@ def run_train(torch, dev, rp, tag, config, freeze_at, iters, emb, resume_check):
         f"{sum(p.numel() for p in model.parameters()) / 1e6:.3f}M parameters, built in "
         f"{time.perf_counter() - t0:.3f} s")
     before = {n: p.detach().clone() for n, p in model.named_parameters()}
-    loop = cfg.MODEL.ROI_BOX_HEAD.POOLER_TYPE == "ROILoopPool"
+    loop, mrrp, n_chunks = pool_kind(model)
+    vgg = "vgg" in cfg.MODEL.BACKBONE.NAME
     counters = ("LOOP_LAUNCHES", "LOOP_BWD_LAUNCHES") if loop else ("LAUNCHES", "BWD_LAUNCHES")
     others = tuple(c for c in ALL_COUNTERS if c not in counters)
     rows, branches, captured = [], set(), []
@@ -832,19 +1018,33 @@ def run_train(torch, dev, rp, tag, config, freeze_at, iters, emb, resume_check):
         branches.update(torch.div(props.level_ids[props.valid], 1000,
                                   rounding_mode="floor").unique().tolist())
 
-    kernel_bwd = rp.roi_loop_pool_gated_bwd
+    bwd_name = "roi_loop_pool_gated_bwd" if loop else "roi_pool_gated_bwd"
+    kernel_bwd, plain_bwd = getattr(rp, bwd_name), getattr(rp, bwd_name + "_plain")
+    k = LOOP_BWD_PLAIN_N // 4
 
-    def capture_bwd(feat, rois, gate, src, out, g, *args, **kw):
-        # the inputs of the model's first loop-backward launch, on a subset of ROIs
+    def capture_bwd(*args, **kw):
+        # the inputs of the model's first backward launch, on its first k ROIs
+        # per image; ``rerun(fn)`` calls ``fn`` on them for the feature cotangent
         if not captured:
-            k = LOOP_BWD_PLAIN_N // 4
-            captured.append((feat, rois[:, :k].contiguous(), gate[:, :k].contiguous(),
-                             src[:, :k].contiguous(), g[:, :, :k].contiguous(), args))
-        return kernel_bwd(feat, rois, gate, src, out, g, *args, **kw)
+            if loop:
+                feat, rois, gate, src, _, g, *rest = args
+                sub = [t[:, :k].contiguous() for t in (rois, gate, src)]
+                g_sub = g[:, :, :k].contiguous()
+                captured.append(lambda fn, **x: fn(feat, *sub, None, g_sub, *rest,
+                                                    need_gate=False, **x))
+            else:
+                feat, rois, gate, _, g, *rest = args
+                src = kw.get("src")
+                sub = [t[:, :k].contiguous() for t in (rois, gate)]
+                s_sub = None if src is None else src[:, :k].contiguous()
+                g_sub = g[:, :k].contiguous()
+                captured.append(lambda fn, **x: fn(feat, *sub, None, g_sub, *rest,
+                                                    need_gate=False, src=s_sub, **x))
+        return kernel_bwd(*args, **kw)
 
     hooks = [model.roi_heads.pooler.register_forward_hook(pooled),
              model.proposal_generator.register_forward_hook(proposed)]
-    rp.roi_loop_pool_gated_bwd = capture_bwd
+    setattr(rp, bwd_name, capture_bwd)
     torch.cuda.reset_peak_memory_stats(dev)
     for c in ALL_COUNTERS:
         setattr(rp, c, 0)
@@ -854,35 +1054,33 @@ def run_train(torch, dev, rp, tag, config, freeze_at, iters, emb, resume_check):
         trainer.train()
         torch.cuda.synchronize()
     finally:
-        rp.roi_loop_pool_gated_bwd = kernel_bwd
+        setattr(rp, bwd_name, kernel_bwd)
         for h in hooks:
             h.remove()
     dt = time.perf_counter() - t0
     launches, bwd_launches = (getattr(rp, c) for c in counters)
     other = {c: getattr(rp, c) for c in others}
     peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
-    want_bwd = N_CHUNKS * iters if freeze_at <= 4 else 0
-    if (launches, bwd_launches) != (N_CHUNKS * iters, want_bwd) or any(other.values()):
+    want_bwd = n_chunks * iters if freeze_at <= 4 else 0
+    if (launches, bwd_launches) != (n_chunks * iters, want_bwd) or any(other.values()):
         raise AssertionError(f"{tag}: launches {counters} {launches}, {bwd_launches}, others "
-                             f"{other} (expected {N_CHUNKS * iters}, {want_bwd}, 0)")
-    if rows != [3 if loop else 1] * (N_CHUNKS * iters):
+                             f"{other} (expected {n_chunks * iters}, {want_bwd}, 0)")
+    if rows != [3 if loop else 1] * (n_chunks * iters):
         raise AssertionError(f"{tag}: pooled rows per chunk {rows}")
-    if loop and branches != set(range(N_BRANCH)):
+    if mrrp and branches != set(range(N_BRANCH)):
         raise AssertionError(f"{tag}: RPN proposals from branches {sorted(branches)} only")
-    if loop and freeze_at <= 4:
-        feat, rois, gate, src, g, args = captured[0]
-        got, _ = kernel_bwd(feat, rois, gate, src, None, g, *args, need_gate=False)
-        want, _ = rp.roi_loop_pool_gated_bwd_plain(feat, rois, gate, src, None, g, *args,
-                                                   need_gate=False, max_elems=1 << 28)
+    if mrrp and freeze_at <= 4:
+        got, _ = captured[0](kernel_bwd)
+        want, _ = captured[0](plain_bwd, max_elems=1 << 28)
         err = (got.float() - want.float()).abs()
         scale = want.float().abs().max()
         if not (scale > 0 and (err <= 2.0 ** -7 * want.float().abs() + 1e-5 * scale).all()):
-            raise AssertionError(f"{tag}: the model's loop-backward launch, on {rois.shape[1]} "
-                                 f"ROIs per image, differs from plain: max |err| "
-                                 f"{err.max().item()}")
-        log(f"{tag}: the model's first loop-backward launch, re-run on its first {rois.shape[1]} "
-            f"ROIs per image, ~= plain (one bf16 step); max |err| {err.max().item():.3g}")
-        del captured[:], feat, got, want, err
+            raise AssertionError(f"{tag}: the model's {bwd_name} launch, on {k} ROIs per image, "
+                                 f"differs from plain: max |err| {err.max().item()}")
+        log(f"{tag}: the model's first {bwd_name} launch, re-run on its first {k} ROIs per "
+            f"image, ~= plain (one bf16 step); max |err| {err.max().item():.3g}")
+        del got, want, err
+    del captured[:]
     with open(os.path.join(out_dir, "metrics.json")) as f:
         records = [json.loads(line) for line in f]
     if [r["iteration"] for r in records] != [0, iters - 1]:
@@ -892,9 +1090,9 @@ def run_train(torch, dev, rp, tag, config, freeze_at, iters, emb, resume_check):
             raise AssertionError(f"{tag}: losses missing or not finite: {r}")
     # every trainable parameter was updated (nonzero momentum), and the DAN's
     # weights (and res5's, where it trains) changed; other tensors' first
-    # updates, at the warmup rate (2.5e-6), can be below their float32
-    # resolution. The miner's det bias has a zero gradient (a softmax over
-    # proposals ignores a shift).
+    # updates, at the warmup rate (2.5e-6; 2.5e-7 for VGG16's recipe), can be
+    # below their float32 resolution. The miner's det bias has a zero
+    # gradient (a softmax over proposals ignores a shift).
     state = trainer.step.optimizer.state
     must_move = {"roi_heads.box_head.fc1.weight", "roi_heads.box_head.fc2.weight"}
     changed = 0
@@ -911,14 +1109,20 @@ def run_train(torch, dev, rp, tag, config, freeze_at, iters, emb, resume_check):
         if same and (n in must_move or (".res5." in n and p.dim() >= 2)):
             raise AssertionError(f"{tag}: trainable weight {n} did not move")
     trainable = sum(p.requires_grad for p in model.parameters())
-    moved_res5 = [n for n, p in model.named_parameters() if ".res5." in n and p.requires_grad]
-    if (freeze_at <= 4) != bool(moved_res5):
-        raise AssertionError(f"{tag}: res5 trainable {moved_res5[:2]} with FREEZE_AT {freeze_at}")
+    # the JAX package's freeze stages: res5; or VGG16's plain5 and plain1,
+    # which falls through to stage 5
+    stages = {n.split(".")[1] for n, p in model.named_parameters()
+              if n.startswith("backbone.") and p.requires_grad}
+    want_stages = set() if freeze_at > 4 else ({"plain1", "plain5"} if vgg else {"res5"})
+    if stages != want_stages:
+        raise AssertionError(f"{tag}: trainable backbone stages {sorted(stages)} with FREEZE_AT "
+                             f"{freeze_at}")
     del before
     log(f"{tag} slice: train() ran {iters} iterations of B={TB} {TH}x{TW} ({iters // 4} updates) "
         f"in {dt:.3f} s = {TB * iters / dt:.3f} images/s, the first iteration's set-up and the "
         f"final checkpoint save included; pool launches {launches} ({rows[0]} rows per chunk), "
-        f"backward launches {bwd_launches}; RPN proposals from branches {sorted(branches)}; "
+        f"backward launches {bwd_launches}; trainable backbone stages {sorted(stages)}; RPN "
+        f"proposals from branches {sorted(branches)}; "
         f"losses finite at iterations 0 and {iters - 1} "
         f"({', '.join(f'{k} {records[-1][k]:.4f}' for k in LOSSES)}); frozen parameters "
         f"bit-identical, trainable ones updated, {changed} of {trainable} trainable tensors "
@@ -983,46 +1187,66 @@ def main() -> int:
 
     # ---- 2., 3. kernels vs plain at the slices' shapes
     records = {"roi_pool_gated": phase_pool_kernel(torch, dev, rp),
-               "roi_loop_pool_gated": phase_loop_kernel(torch, dev, rp)}
+               "roi_loop_pool_gated": phase_loop_kernel(torch, dev, rp),
+               "roi_pool_gated_routed": phase_routed_kernel(torch, dev, rp)}
 
     # ---- 4., 5. the inference slices
     emb = torch.randn(80, 512, generator=torch.Generator().manual_seed(2)).to(dev)
-    by_path = {name: {} for name in ("roi_pool_gated", "roi_loop_pool_gated", "roi_pool_gated_bwd",
-                                     "roi_loop_pool_gated_bwd")}
+    by_path = {name: {} for name in ("roi_pool_gated", "roi_loop_pool_gated",
+                                     "roi_pool_gated_routed", "roi_pool_gated_bwd",
+                                     "roi_loop_pool_gated_bwd", "roi_pool_gated_bwd_routed")}
     for name, tag, config in (("roi_pool_gated", "plain", PLAIN_CONFIG),
-                              ("roi_loop_pool_gated", "mrrp", MRRP_CONFIG)):
+                              ("roi_loop_pool_gated", "mrrp", MRRP_CONFIG),
+                              ("roi_pool_gated", "vgg", VGG_CONFIG),
+                              ("roi_pool_gated_routed", "mrrp-vgg", MRRP_VGG_CONFIG)):
         launches, err = run_slice(torch, dev, rp, tag, config, emb)
-        records[name]["launches"] = by_path[name][tag] = launches
+        by_path[name][tag] = launches
         records[name]["max_abs_err"] = max(records[name]["max_abs_err"], err)
+    for name, tag in (("roi_pool_gated", "plain"), ("roi_loop_pool_gated", "mrrp"),
+                      ("roi_pool_gated_routed", "mrrp-vgg")):
+        records[name]["launches"] = by_path[name][tag]
 
-    # ---- 6., 7. the backward kernels vs plain; 8.-10. the train slices
+    # ---- 6., 7. the backward kernels vs plain; 8.-11. the train slices
     records["roi_pool_gated_bwd"] = phase_bwd_kernel(torch, dev, rp)
     records["roi_loop_pool_gated_bwd"] = phase_loop_bwd_kernel(torch, dev, rp)
+    records["roi_pool_gated_bwd_routed"] = phase_routed_bwd_kernel(torch, dev, rp)
     for tag, config, freeze_at, iters, pool, bwd_name in (
             ("train-plain", PLAIN_CONFIG, 5, TRAIN_ITERS, "roi_pool_gated", "roi_pool_gated_bwd"),
             ("train-res5", PLAIN_CONFIG, 4, RES5_ITERS, "roi_pool_gated", "roi_pool_gated_bwd"),
             ("train-mrrp", MRRP_CONFIG, 5, MRRP_ITERS, "roi_loop_pool_gated",
              "roi_loop_pool_gated_bwd"),
             ("train-mrrp-res5", MRRP_CONFIG, 4, MRRP_RES5_ITERS, "roi_loop_pool_gated",
-             "roi_loop_pool_gated_bwd")):
+             "roi_loop_pool_gated_bwd"),
+            ("train-mrrp-vgg", MRRP_VGG_CONFIG, 5, VGG_ITERS, "roi_pool_gated_routed",
+             "roi_pool_gated_bwd_routed"),
+            ("train-mrrp-vgg-plain5", MRRP_VGG_CONFIG, 4, VGG_ITERS, "roi_pool_gated_routed",
+             "roi_pool_gated_bwd_routed")):
         launches, bwd = run_train(torch, dev, rp, tag, config, freeze_at, iters, emb,
                                   resume_check=freeze_at == 5)
         by_path[pool][tag] = launches
         by_path[bwd_name][tag] = bwd
-    records["roi_pool_gated_bwd"]["launches"] = by_path["roi_pool_gated_bwd"]["train-res5"]
-    records["roi_loop_pool_gated_bwd"]["launches"] = (
-        by_path["roi_loop_pool_gated_bwd"]["train-mrrp-res5"])
+    for name, tag in (("roi_pool_gated_bwd", "train-res5"),
+                      ("roi_loop_pool_gated_bwd", "train-mrrp-res5"),
+                      ("roi_pool_gated_bwd_routed", "train-mrrp-vgg-plain5")):
+        records[name]["launches"] = by_path[name][tag]
 
-    # ---- 11. result lines
+    # ---- 12. result lines
     meta = {
         "roi_pool_gated": ("wsovod_torch/kernels/csrc/roi_pool_gated.cu",
                            "wsovod_tpu/ops/pallas/roi_pool_fused.py:1585"),
         "roi_loop_pool_gated": ("wsovod_torch/kernels/csrc/roi_loop_pool_gated.cu",
                                 "wsovod_tpu/ops/pallas/roi_pool_fused.py:1585"),
+        # the same kernel with a per-ROI source copy: the pallas_call of
+        # roi_pool_fused_batched with src_tbl, reached from
+        # roi_pool_fused_branched_ad (loop_pool=False), and its VJP
+        "roi_pool_gated_routed": ("wsovod_torch/kernels/csrc/roi_pool_gated.cu",
+                                  "wsovod_tpu/ops/pallas/roi_pool_fused.py:2085"),
         "roi_pool_gated_bwd": ("wsovod_torch/kernels/csrc/roi_pool_gated_bwd.cu",
                                "wsovod_tpu/ops/pallas/roi_pool_fused.py:2146"),
         "roi_loop_pool_gated_bwd": ("wsovod_torch/kernels/csrc/roi_loop_pool_gated_bwd.cu",
                                     "wsovod_tpu/ops/pallas/roi_pool_fused.py:2240"),
+        "roi_pool_gated_bwd_routed": ("wsovod_torch/kernels/csrc/roi_pool_gated_bwd.cu",
+                                      "wsovod_tpu/ops/pallas/roi_pool_fused.py:2240"),
     }
     extra = ("n_rois", "plain_n_rois", "ms_at_plain_n")
     log(card)

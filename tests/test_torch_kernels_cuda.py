@@ -5,11 +5,15 @@ runs on a host without it:
     python -m pytest tests/test_torch_kernels_cuda.py -m cuda -q
 """
 
+import os
+
 import numpy as np
 import pytest
 import torch
 
 from wsovod_torch.ops import roi_pool as port
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 pytestmark = pytest.mark.cuda
 
@@ -42,10 +46,12 @@ def test_kernel_equals_plain(cuda):
     and on an inner channel chunk, one launch counted per call; float16 and
     non-contiguous features are refused. The loop kernel at a medium size
     (3 branch copies, 600 ROIs per image, routed), rows 1 and 3. Both
-    backward kernels against their plain versions to float tolerance."""
+    backward kernels against their plain versions to float tolerance. The
+    gated ROIPool and its backward routed by a per-ROI source copy."""
     _check_loop_kernel(cuda)
     _check_backward_kernel(cuda)
     _check_loop_backward_kernel(cuda)
+    _check_routed_kernels(cuda)
     for dtype in (torch.bfloat16, torch.float32):
         feat, rois, gate = _inputs(cuda, dtype)
         for c_base, c_take in ((0, 64), (16, 32)):
@@ -99,6 +105,49 @@ def _check_backward_kernel(cuda):
         (y.float() * g.float()).sum().backward()
         torch.cuda.synchronize()
         assert (port.LAUNCHES, port.BWD_LAUNCHES) == (before[0] + 1, before[1] + 1)
+        err = (leaf.grad.float() - want_f.float()).abs()
+        assert (err <= rtol * want_f.float().abs() + 1e-5 * scale).all(), (dtype, err.max())
+
+
+def _check_routed_kernels(cuda):
+    """``roi_pool_gated`` and ``roi_pool_gated_bwd`` with ``src`` (3 branch
+    copies, 600 ROIs per image, routed; one copy post-ReLU on a 0.5 grid so
+    bins tie, gate-0 rows) against their plain versions: the forward bit for
+    bit, the backward to ``_check_backward_kernel``'s tolerances, also
+    through ``RoIPoolGatedFunction``."""
+    b, n, n_br = 2, 600, 3
+    g = torch.Generator().manual_seed(5)
+    for dtype, rtol in ((torch.float32, 1e-5), (torch.bfloat16, 2.0 ** -7)):
+        feat, rois, gate = _inputs(cuda, dtype, b=b, h=43, w=66, c=256, n=n, seed=5)
+        f = torch.round(feat.float() * 2) / 2
+        feat = torch.cat([f, torch.relu(f.flip(1)), f * -0.5], 0).to(dtype).contiguous()
+        gate[:, 3] = 0.0
+        branch = torch.randint(0, n_br, (b, n), generator=g)
+        src = (branch * b + torch.arange(b)[:, None]).to(torch.int32).to(cuda)
+        c_base, c_take = 64, 128
+        before = port.LAUNCHES
+        out = port.roi_pool_gated(feat, rois, gate, c_base, c_take, 7, 0.125, src)
+        torch.cuda.synchronize()
+        assert port.LAUNCHES == before + 1
+        want = port.roi_pool_gated_plain(feat, rois, gate, c_base, c_take, 7, 0.125, src=src)
+        assert torch.equal(out, want), dtype
+        cot = torch.randn(out.shape, generator=g).to(cuda, dtype)
+        before = port.BWD_LAUNCHES
+        got_f, got_g = port.roi_pool_gated_bwd(feat, rois, gate, out, cot, c_base, c_take, 7,
+                                               0.125, src=src)
+        torch.cuda.synchronize()
+        assert port.BWD_LAUNCHES == before + 1 and got_f.shape == feat.shape
+        want_f, want_g = port.roi_pool_gated_bwd_plain(feat, rois, gate, out, cot, c_base, c_take,
+                                                       7, 0.125, src=src)
+        scale = want_f.float().abs().max()
+        assert scale > 0 and all(want_f[k].abs().max() > 0 for k in range(feat.shape[0]))
+        err = (got_f.float() - want_f.float()).abs()
+        assert (err <= rtol * want_f.float().abs() + 1e-5 * scale).all(), (dtype, err.max())
+        torch.testing.assert_close(got_g, want_g, rtol=1e-4, atol=1e-4 * want_g.abs().max())
+
+        leaf = feat.clone().requires_grad_(True)
+        y = port.RoIPoolGatedFunction.apply(leaf, rois, gate, c_base, c_take, 7, 0.125, src)
+        (y.float() * cot.float()).sum().backward()
         err = (leaf.grad.float() - want_f.float()).abs()
         assert (err <= rtol * want_f.float().abs() + 1e-5 * scale).all(), (dtype, err.max())
 
@@ -246,3 +295,44 @@ def test_model_forward_on_cuda(cuda):
     assert (port.LOOP_LAUNCHES, port.LOOP_BWD_LAUNCHES) == (before[0] + 1, before[1] + 1)
     assert len(losses) == 5 and all(torch.isfinite(v) for v in losses.values()), losses
     assert model.backbone.res5[0].conv1.weight.grad.abs().sum() > 0
+    _check_mrrp_vgg_train_step(cuda, batch, emb)
+
+
+def _check_mrrp_vgg_train_step(cuda, batch, emb):
+    """The MRRP VGG16 (``configs/COCO-Detection/WSOVOD_MRRP_V_16_DC5_1x.yaml``,
+    narrow heads) at ``FREEZE_AT`` 4: inference pools once through the
+    routed ROIPool; a train step pools once and runs the routed backward
+    once, the losses are finite, plain1 and plain5 receive gradients and
+    plain2-4 stay frozen."""
+    from wsovod_torch import get_cfg
+    from wsovod_torch.models import build_model
+
+    cfg = get_cfg()
+    cfg.merge_from_file(os.path.join(REPO, "configs", "COCO-Detection",
+                                     "WSOVOD_MRRP_V_16_DC5_1x.yaml"))
+    cfg.MODEL.RPN.IN_FEATURES = ["plain5"]
+    cfg.MODEL.ROI_HEADS.NUM_CLASSES = 5
+    cfg.MODEL.ROI_BOX_HEAD.DAN_DIM = [64, 64]
+    cfg.MODEL.ROI_BOX_HEAD.OPEN_VOCABULARY.WEIGHT_DIM = 16
+    cfg.MODEL.RPN.PRE_NMS_TOPK_TEST = cfg.MODEL.RPN.PRE_NMS_TOPK_TRAIN = 256
+    cfg.MODEL.RPN.POST_NMS_TOPK_TEST = cfg.MODEL.RPN.POST_NMS_TOPK_TRAIN = 64
+    cfg.MODEL.BACKBONE.FREEZE_AT = 4
+    cfg.TEST.AUG.ENABLED = False
+    model = build_model(cfg, device=cuda, seed=0)
+    before = port.LAUNCHES
+    with torch.inference_mode():
+        det, _, _ = model(batch, embeddings=emb)
+    torch.cuda.synchronize()
+    assert port.LAUNCHES == before + 1
+    assert torch.isfinite(det.scores[det.valid]).all() and det.valid.any()
+    model.train()
+    before = (port.LAUNCHES, port.BWD_LAUNCHES)
+    losses = model.forward_train(batch, emb, iteration=5,
+                                 generator=torch.Generator(device=cuda).manual_seed(0))
+    sum(losses.values()).backward()
+    torch.cuda.synchronize()
+    assert (port.LAUNCHES, port.BWD_LAUNCHES) == (before[0] + 1, before[1] + 1)
+    assert len(losses) == 5 and all(torch.isfinite(v) for v in losses.values()), losses
+    bb = model.backbone
+    assert bb.plain1.conv1.weight.grad.abs().sum() > 0 and bb.plain5.conv3.weight.grad.abs().sum() > 0
+    assert bb.plain2.conv1.weight.grad is None and not bb.plain4.conv3.weight.requires_grad

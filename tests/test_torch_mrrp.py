@@ -1,4 +1,5 @@
-"""MRRP inference of the port against ``wsovod_tpu`` on the CPU.
+"""MRRP inference of the port against ``wsovod_tpu`` on the CPU, and the
+VGG16-DC5 detectors'.
 
 * The plain ROILoopPool (the CUDA kernel's CPU stand-in) against
   ``wsovod_tpu.ops.roi_pool.roi_loop_pool`` times the gate, per ROI on the
@@ -17,8 +18,18 @@
 * The weight round trip on the MRRP training tree, and ContextLocNet's
   object miner loaded from it against the JAX package's (rtol 1e-5).
 
+* The VGG16-DC5 detectors, inside the same items: ``VGG16`` plain and MRRP
+  against the JAX module (rtol 1e-4); the plain ROIPool routed by branch
+  and its backward against the JAX package's MRRP pooler and
+  ``_pool_branched_bwd(loop_pool=False)`` (exact; rtol 1e-5); the tiny MRRP
+  VGG16's inference (as the MRRP R18's); its freeze stages (``plain1``
+  falls through to stage 5, as the JAX optimizer labels it) and weight
+  round trip. Its train step is in ``test_torch_train.py``.
+
 Three test items on purpose: many small items queued behind the JAX
-package's heavy tests have crashed XLA:CPU (ROADMAP.md, host facts).
+package's heavy tests have crashed XLA:CPU, and one more item has moved
+the JAX package's two heaviest tests onto one worker back to back, past the
+tier-1 time limit (ROADMAP.md, host facts).
 """
 
 import jax
@@ -27,49 +38,31 @@ import numpy as np
 import torch
 
 from torch_port_common import (
-    MRRP_YAML, embeddings, jax_reference, jax_stages, make_batch, tiny_cfg, torch_model_from_jax,
+    MRRP_VGG_YAML, MRRP_YAML, VGG_YAML, embeddings, jax_reference, jax_stages, make_batch,
+    random_params, routed_pool_inputs, tiny_cfg, torch_model_from_jax,
 )
+from wsovod_tpu.models.backbones.vgg import VGG16 as JaxVGG16
 from wsovod_tpu.ops.pallas.roi_pool_fused import _pool_ad_bwd, _pool_branched_bwd
 from wsovod_tpu.ops.roi_pool import roi_loop_pool
+from wsovod_tpu.ops.roi_pool import roi_pool as jax_roi_pool
 from wsovod_tpu.models.mil_heads import ObjectMiningOutputLayers as JaxObjectMiner
-from wsovod_tpu.utils.weight_import import import_wsovod_model
+from wsovod_tpu.utils.weight_import import import_vgg16, import_wsovod_model
 from wsovod_torch import get_cfg
 from wsovod_torch.models import build_model
+from wsovod_torch.models.backbones import VGG16
 from wsovod_torch.models.mil_heads import ObjectMiningOutputLayers
-from wsovod_torch.ops.roi_pool import roi_loop_pool_gated, roi_loop_pool_gated_bwd_plain
+from wsovod_torch.ops.roi_pool import (
+    roi_loop_pool_gated, roi_loop_pool_gated_bwd_plain, roi_pool_gated, roi_pool_gated_bwd_plain,
+)
+from wsovod_torch.solver.build import param_labels
 from wsovod_torch.structures.instances import Instances
-from wsovod_torch.utils.weight_import import state_dict_from_jax
+from wsovod_torch.utils.weight_import import backbone_state_dict_from_jax, state_dict_from_jax
 
 RTOL, BOX_ATOL = 1e-4, 1e-3
 
 
-def _loop_inputs(seed=0, b=2, n_br=3, h=9, w=13, c=12, n=40, scale=0.125):
-    """Features of ``n_br`` branch copies (branch-major), boxes from the
-    image-scale mix plus hand-made rows, the ``(objectness+1)*valid`` gate
-    and each ROI's source copy ``branch * b + image``."""
-    rng = np.random.RandomState(seed)
-    img_w, img_h = w / scale, h / scale
-    feat = rng.randn(n_br * b, h, w, c).astype(np.float32)
-    xy = rng.uniform(-20, img_w * 0.8, (b, n, 2))
-    rois = np.concatenate([xy, xy + rng.uniform(2, img_w * 0.7, (b, n, 2))], -1)
-    rois[:, 0] = [img_w - 30, img_h - 20, img_w + 60, img_h + 50]  # overhangs right/bottom
-    rois[:, 1] = [-50, -40, 40, 30]  # overhangs left/top: the context's hole exceeds the outer box
-    rois[:, 2] = [50, 40, 20, 10]  # degenerate: x2 < x1, y2 < y1
-    rois[:, 3] = [4, 12, 100, 60]  # ROI region on .5 boundaries
-    rois[:, 4] = [4, 20, 40, 60]  # inner box x1 = 12 on a .5 boundary
-    rois[:, 5] = [20, 28, 60, 68]  # outer box on .5 boundaries (x1 = 4, x2 = 76)
-    rois[:, 6] = [0, 0, img_w, img_h]  # the whole image
-    rois[:, 7] = [30, 30, 31, 31]  # one pixel, the inner hole empty
-    rois[:, 8] = [-400, -300, -200, -100]  # wholly outside
-    valid = rng.rand(b, n) > 0.15
-    valid[:, :9] = True
-    valid[:, 9] = False
-    gate = ((rng.rand(b, n) + 1.0) * valid).astype(np.float32)
-    rois = np.where(valid[..., None], rois, 0.0).astype(np.float32)
-    branch = rng.randint(0, n_br, (b, n))
-    branch[:, :n_br] = np.arange(n_br)  # every branch is read
-    src = (branch * b + np.arange(b)[:, None]).astype(np.int32)
-    return feat, rois, gate, src
+def _t(x):
+    return torch.from_numpy(np.array(x))
 
 
 def _jax_loop_gated(feat, rois, gate, src, c_base, c_take, scale, dtype):
@@ -93,7 +86,7 @@ def test_loop_pool_plain_matches_jax():
     channel chunk that starts at 4; ``rows=1`` and ``rows=2`` are the first rows of
     ``rows=3``."""
     scale, c_base, c_take = 0.125, 4, 8
-    feat, rois, gate, src = _loop_inputs()
+    feat, rois, gate, src = routed_pool_inputs()
     rois_t, gate_t, src_t = torch.from_numpy(rois), torch.from_numpy(gate), torch.from_numpy(src)
     for dtype, jdtype in ((torch.float32, jnp.float32), (torch.bfloat16, jnp.bfloat16)):
         ft = torch.from_numpy(feat).to(dtype)
@@ -108,6 +101,7 @@ def test_loop_pool_plain_matches_jax():
     assert (np.abs(want[:, :, :9]).reshape(3, 2, 9, -1).max(-1) > 0).any()
     assert not want[:, :, 9].any()
     _check_loop_backward()
+    _check_routed_pool()
 
 
 def _check_loop_backward():
@@ -115,13 +109,13 @@ def _check_loop_backward():
     ``_pool_ad_bwd(loop_pool=True)``, each called with ``out`` from the jnp
     ``roi_loop_pool``: values on a 0.5 grid (ties, exact zeros, negatives),
     one copy post-ReLU (bins whose max is 0), the edge boxes of
-    ``_loop_inputs`` (overhanging, degenerate, empty holes, wholly outside)
+    ``routed_pool_inputs`` (overhanging, degenerate, empty holes, wholly outside)
     and gate-0 rows; both cotangents. Then the tie at 0: a 2x2 map of zeros
     pooled into one bin sends each pixel ``g * gate / 2 / 2 / 2`` of the ROI
     row (``jnp.maximum(M, 0)`` halves it, as ``torch.maximum``; a
     ``clamp_min`` would not)."""
     scale, c_base, c_take, b = 0.125, 4, 8, 2
-    feat, rois, gate, src = _loop_inputs(1)
+    feat, rois, gate, src = routed_pool_inputs(1)
     feat = np.round(feat * 2) / 2
     feat[1::b] = np.maximum(feat[1::b], 0)  # branch 0 of image 1, branch 1 of image 0, ...
     feat = feat.astype(np.float32)
@@ -177,6 +171,7 @@ def test_mrrp_inference_matches_jax():
     with its top-5 detections. Then the data-aware vector of a single-branch
     batch of three images."""
     _check_single_branch_batch_of_three()
+    _check_mrrp_vgg_inference()
     batch = make_batch(0)
     for idx, n_copies in ((-1, 3), (1, 1)):
         feats, rpn, daf, (det, probs, boxes, props) = jax_stages(0, MRRP_YAML, idx)
@@ -296,3 +291,181 @@ def test_mrrp_weight_round_trip():
     assert not props[0].level_ids[:, sam].any()
     drawn = props[1].level_ids[:, sam]
     assert set(torch.unique(drawn).tolist()) <= {0, 1000, 2000} and drawn.any()
+    _check_vgg_backbone()
+    _check_vgg_freeze_stages_and_weights()
+
+
+# ---------------------------------------------------------------- VGG16-DC5
+def _check_vgg_backbone():
+    """``VGG16`` against the JAX package's ``VGG16.apply`` on a 1x3x48x64
+    image, train and test mode, rtol 1e-4 (float32 convs summed in another
+    order over 13 layers): plain (plain5 at dilation 2 after plain4's
+    unpadded stride-1 pool: 48x64 gives 5x7) and MRRP (dilations 1/2/4, test
+    branch 1: three copies in training, one at test)."""
+    x = np.random.RandomState(0).randn(1, 48, 64, 3).astype(np.float32) * 50
+    for mrrp in (False, True):
+        kw = dict(conv5_dilation=2, out_features=("plain5",))
+        if mrrp:
+            kw.update(mrrp_on=True, mrrp_dilations=(1, 2, 4), mrrp_stage="plain5",
+                      mrrp_test_branch_idx=1)
+        jm = JaxVGG16(**kw)
+        params = random_params(jax.eval_shape(lambda: jm.init(jax.random.PRNGKey(0),
+                                                              jnp.asarray(x))), seed=3)
+        tm = VGG16(**kw)
+        tm.load_state_dict(backbone_state_dict_from_jax(params["params"]), strict=True)
+        for train in (False, True):
+            want = np.asarray(jax.jit(lambda p, v: jm.apply(p, v, train=train))(
+                params, jnp.asarray(x))["plain5"])
+            with torch.inference_mode():
+                got = tm(_t(x), train=train)["plain5"].numpy()
+            copies = 3 if mrrp and train else 1
+            assert got.shape == want.shape == (copies, 5, 7, 512), (mrrp, train, got.shape)
+            np.testing.assert_allclose(got, want, rtol=RTOL, atol=RTOL * np.abs(want).max(),
+                                       err_msg=f"mrrp {mrrp}, train {train}")
+            assert np.abs(want).max() > 0
+
+
+def _jax_routed_pool(feat, rois, gate, src, c_base, c_take, scale, dtype):
+    """The JAX package's MRRP ROIPool: every copy of image ``b`` pools all
+    of its ROIs, each ROI keeps its branch's, times the gate."""
+    b, n = src.shape
+    n_br = feat.shape[0] // b
+    f = jnp.asarray(feat[..., c_base:c_base + c_take]).astype(dtype)
+    out = []
+    for i in range(b):
+        pooled = jnp.stack([jax_roi_pool(f[br * b + i], jnp.asarray(rois[i]), 7, scale)
+                            for br in range(n_br)])
+        sel = jnp.asarray(src[i] // b)[None, :, None, None, None]
+        pooled = jnp.take_along_axis(pooled, sel, axis=0)[0]
+        out.append(pooled * jnp.asarray(gate[i]).astype(dtype)[:, None, None, None])
+    return np.asarray(jnp.stack(out).astype(jnp.float32))
+
+
+def _check_routed_pool():
+    """The plain ROIPool routed by branch (``roi_pool_gated`` with ``src``)
+    against the JAX package's MRRP pooler path
+    (``wsovod_tpu/models/poolers.py:808-840``: the jnp ``roi_pool`` of every
+    copy, ``take_along_axis`` by branch, times the gate), exact in float32
+    and bfloat16, with overhanging, degenerate, wholly outside and invalid
+    boxes; its backward (``roi_pool_gated_bwd_plain`` with ``src``) against
+    the JAX package's ``_pool_branched_bwd(loop_pool=False)`` called
+    directly, on tie-heavy float32 features (a 0.5 grid, every other copy
+    post-ReLU) with gate-0 rows, both cotangents, rtol 1e-5 (float32
+    summation order)."""
+    scale, c_base, c_take, b = 0.125, 4, 8, 2
+    feat, rois, gate, src = routed_pool_inputs(2)
+    for dtype, jdtype in ((torch.float32, jnp.float32), (torch.bfloat16, jnp.bfloat16)):
+        want = _jax_routed_pool(feat, rois, gate, src, c_base, c_take, scale, jdtype)
+        got = roi_pool_gated(_t(feat).to(dtype), _t(rois), _t(gate), c_base, c_take, 7, scale,
+                             _t(src))
+        assert got.dtype == dtype and got.shape == want.shape
+        np.testing.assert_array_equal(got.float().numpy(), want, err_msg=str(dtype))
+    assert (np.abs(want[:, :8]).reshape(b, 8, -1).max(-1) > 0).all()  # the edge rows pool
+    assert not want[:, 8].any() and not want[:, 9].any()  # wholly outside; invalid
+
+    # the backward, on ties: a 0.5 grid, every other copy post-ReLU
+    feat = np.round(feat * 2) / 2
+    feat[1::b] = np.maximum(feat[1::b], 0)
+    feat = feat.astype(np.float32)
+    gate[:, 10] = 0.0  # a valid box with gate 0
+    out = _jax_routed_pool(feat, rois, gate, src, c_base, c_take, scale, jnp.float32)
+    g = np.random.RandomState(4).randn(*out.shape).astype(np.float32)
+    hwnc = (0, 2, 3, 1, 4)  # the TPU kernel's [B, P, P, N, c] layout
+    args = (c_base, c_take, 7, scale, False, 1.8, None, False, None)
+    res = (jnp.asarray(feat), jnp.asarray(rois), jnp.asarray(gate),
+           jnp.asarray((src // b).astype(np.float32)), jnp.asarray(out.transpose(hwnc)))
+    want_feat, _, want_gate, _ = jax.jit(lambda res, g: _pool_branched_bwd(*args, res, g))(
+        res, jnp.asarray(g.transpose(hwnc)))
+    got_feat, got_gate = roi_pool_gated_bwd_plain(_t(feat), _t(rois), _t(gate), _t(out), _t(g),
+                                                  c_base, c_take, 7, scale, src=_t(src))
+    np.testing.assert_allclose(got_feat.numpy(), want_feat, rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(got_gate.numpy(), want_gate, rtol=1e-5, atol=1e-5)
+    assert got_feat.shape == feat.shape and np.abs(want_feat).max() > 0
+    assert (got_gate.numpy()[:, 10] == 0).all()
+    assert not got_feat[..., :c_base].any() and not got_feat[..., c_base + c_take:].any()
+    # every copy is read, and each ROI's cotangent lands in its own copy only
+    assert all(np.abs(want_feat[s]).max() > 0 for s in range(feat.shape[0]))
+
+
+def _check_vgg_freeze_stages_and_weights():
+    """The freeze stages of the MRRP VGG16: ``plain1`` matches none of the
+    JAX package's stage rules and falls through to stage 5, so ``FREEZE_AT``
+    4 trains plain1 and plain5 (labels equal to the JAX optimizer's); the
+    conv biases start at zero; and the weight round trip through the
+    reference torch names ``backbone.plain{k}.conv{i}``."""
+    from wsovod_tpu.solver.build import param_labels as jax_param_labels
+
+    _, template = jax_reference(MRRP_VGG_YAML, -1)
+    model = build_model(tiny_cfg(get_cfg(), MRRP_VGG_YAML), device="cpu", seed=0)
+    plain = build_model(tiny_cfg(get_cfg(), VGG_YAML), device="cpu", seed=None)
+    assert sorted(model.state_dict()) == sorted(plain.state_dict())
+    # init_parameters zeroes the conv biases, as the JAX package's ConvNorm
+    assert not model.backbone.plain1.conv1.bias.any() and model.backbone.plain1.conv1.weight.std() > 0
+
+    jax_labels = {jax.tree_util.keystr(path): label for path, label in
+                  jax.tree_util.tree_flatten_with_path(jax_param_labels(template["params"], 4))[0]}
+    for freeze_at, trainable in ((4, {"plain1", "plain5"}), (5, set())):
+        cfg = tiny_cfg(get_cfg(), MRRP_VGG_YAML)
+        cfg.MODEL.BACKBONE.FREEZE_AT = freeze_at
+        built = build_model(cfg, device="cpu", seed=None)
+        assert {n.split(".")[1] for n, p in built.named_parameters()
+                if n.startswith("backbone.") and p.requires_grad} == trainable
+        for name, label in param_labels(built).items():
+            if not name.startswith("backbone."):
+                continue
+            block, conv, leaf = name.split(".")[1:]
+            assert label == ("backbone" if block in trainable else "frozen"), (name, freeze_at)
+            if freeze_at == 4:  # the JAX optimizer's label of the same tensor
+                key = f"['backbone']['{block}']['{conv}']['{'kernel' if leaf == 'weight' else 'bias'}']"
+                assert jax_labels[key] == label, (name, jax_labels[key])
+
+    # reference-named blobs -> the JAX importers -> back: bit-equal, strict
+    rng = np.random.RandomState(5)
+    blobs = {k: rng.randn(*v.shape).astype(np.float32) for k, v in model.state_dict().items()}
+    heads = {k: v for k, v in blobs.items() if not k.startswith("backbone.")}
+    tree = import_wsovod_model(heads, template, pooled_shape=(512, 7, 7))
+    tree["params"]["backbone"] = import_vgg16(blobs, prefix="backbone.")
+    back = state_dict_from_jax(tree)
+    assert sorted(back) == sorted(blobs)
+    for k, v in blobs.items():
+        np.testing.assert_array_equal(back[k].numpy(), v, err_msg=k)
+    model.load_state_dict(back, strict=True)
+
+
+def _check_mrrp_vgg_inference():
+    """The tiny MRRP VGG16 (``configs/COCO-Detection/WSOVOD_MRRP_V_16_DC5_1x
+    .yaml`` with ``tiny_cfg``: DAN 64, 16-dim embeddings, 5 classes, RPN
+    top-k 64/16, ``RPN.IN_FEATURES ["plain5"]``) on the JAX parameters
+    through ``state_dict_from_jax``, against ``model.apply(...,
+    train=False)``: plain5, the RPN's group proposals with their
+    ``level_ids``, the forward and its top-5 detections (rtol 1e-4, box atol
+    1e-3; validity, classes and ``level_ids`` exactly)."""
+    feats, rpn, daf, (det, probs, boxes, props) = jax_stages(0, MRRP_VGG_YAML, -1)
+    tm = torch_model_from_jax(MRRP_VGG_YAML, -1)
+    batch = {k: _t(v) for k, v in make_batch(0).items()}
+    with torch.inference_mode():
+        tfeats = tm.backbone(tm._normalize(batch["images"]))
+        trpn = tm.proposal_generator(tfeats, batch["image_sizes"])
+        tdet, tprobs, tboxes, tprops = tm(batch, embeddings=_t(embeddings()), return_proposals=True)
+    assert tfeats["plain5"].shape == feats["plain5"].shape == (6, 7, 7, 512)
+    np.testing.assert_allclose(tfeats["plain5"].numpy(), feats["plain5"], rtol=RTOL,
+                               atol=RTOL * np.abs(feats["plain5"]).max())
+    np.testing.assert_array_equal(trpn.valid.numpy(), rpn.valid)
+    np.testing.assert_array_equal(trpn.level_ids.numpy(), rpn.level_ids)
+    np.testing.assert_allclose(trpn.proposal_boxes.numpy(), rpn.proposal_boxes, rtol=RTOL,
+                               atol=BOX_ATOL)
+    assert len(np.unique(rpn.level_ids[rpn.valid] // 1000)) == 3
+    np.testing.assert_array_equal(tprops[2].numpy(), props[2])
+    np.testing.assert_allclose(tprops[0].numpy(), props[0], rtol=RTOL, atol=BOX_ATOL)
+    np.testing.assert_allclose(tprobs.numpy(), probs, rtol=RTOL, atol=1e-6)
+    np.testing.assert_allclose(tboxes.numpy(), boxes, rtol=RTOL, atol=BOX_ATOL)
+    for i in range(2):
+        v = det.valid[i]
+        top = np.argsort(np.where(v, -det.scores[i], np.inf), kind="stable")[:5]
+        top = top[v[top]]
+        assert len(top) == 5
+        np.testing.assert_array_equal(tdet.valid[i].numpy()[top], True)
+        np.testing.assert_array_equal(tdet.classes[i].numpy()[top], det.classes[i][top])
+        np.testing.assert_allclose(tdet.scores[i].numpy()[top], det.scores[i][top], rtol=RTOL)
+        np.testing.assert_allclose(tdet.boxes[i].numpy()[top], det.boxes[i][top], rtol=RTOL,
+                                   atol=BOX_ATOL)

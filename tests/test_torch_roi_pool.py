@@ -2,7 +2,9 @@
 ``wsovod_tpu.ops.roi_pool.roi_pool`` times the gate: exact (atol 0) in
 float32 and bfloat16, with overhanging, degenerate, .5-boundary and invalid
 boxes and a nonzero channel base; the wrapper contracts of both pool
-kernels (the ROILoopPool's numbers are in ``test_torch_mrrp.py``)."""
+kernels, the gated ROIPool's with and without a per-ROI source copy (the
+ROILoopPool's numbers are in ``test_torch_mrrp.py``, the routed ROIPool's
+against the JAX package in ``test_torch_mrrp.py``)."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -80,7 +82,8 @@ def test_plain_gated_pool_exact():
 
 
 def test_wrapper_contract():
-    """The CPU path counts no kernel launch; malformed inputs raise."""
+    """The CPU path counts no kernel launch; malformed inputs raise; the
+    routed pool equals the unrouted one on each ROI's copy."""
     feat, rois, gate = (torch.from_numpy(a) for a in _inputs(2, n=9))
     before = port.LAUNCHES
     port.roi_pool_gated(feat, rois, gate, 0, 24)
@@ -98,9 +101,30 @@ def test_wrapper_contract():
             port.roi_pool_gated(f, r, g, c_base, 24)
             pytest.fail(f"{name} was accepted")
 
+    # routed by a per-ROI source copy: src = the image gives the unrouted
+    # pool; a tiny temporary budget gives the same bits; a feature of other
+    # copies than images needs src; a bad src raises
+    src = torch.zeros(gate.shape, dtype=torch.int32) + torch.arange(2, dtype=torch.int32)[:, None]
+    assert torch.equal(port.roi_pool_gated(feat, rois, gate, 0, 24, P, SCALE, src),
+                       port.roi_pool_gated(feat, rois, gate, 0, 24, P, SCALE))
+    three = torch.cat([feat, -feat, feat * 2])  # [6, H, W, C]: three copies per image
+    routed = src + 2 * torch.tensor([[0, 1, 2, 0, 1, 2, 0, 1, 2]], dtype=torch.int32)
+    got = port.roi_pool_gated(three, rois, gate, 0, 24, P, SCALE, routed)
+    assert port.LAUNCHES == before
+    assert torch.equal(got, port.roi_pool_gated_plain(three, rois, gate, 0, 24, P, SCALE,
+                                                      max_elems=1, src=routed))
+    for k in range(9):
+        one = port.roi_pool_gated(three[routed[:, k]].contiguous(), rois[:, k:k + 1],
+                                  gate[:, k:k + 1], 0, 24, P, SCALE)
+        assert torch.equal(got[:, k:k + 1], one), k
+    for bad in ((three, None), (three, routed[:, :2]), (three, routed + 5), (three, routed - 3)):
+        with pytest.raises(ValueError):
+            port.roi_pool_gated(bad[0], rois, gate, 0, 24, P, SCALE, bad[1])
+    with pytest.raises(TypeError):
+        port.roi_pool_gated(three, rois, gate, 0, 24, P, SCALE, routed.float())
+
     # the loop pool's wrapper: the same contract; a tiny temporary budget
     # (one ROI per chunk) gives the same bits
-    src = torch.zeros(gate.shape, dtype=torch.int32) + torch.arange(2, dtype=torch.int32)[:, None]
     before = port.LOOP_LAUNCHES
     out = port.roi_loop_pool_gated(feat, rois, gate, src, 0, 24, 3, P, SCALE)
     assert port.LOOP_LAUNCHES == before

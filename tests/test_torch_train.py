@@ -15,6 +15,10 @@
   the three-row ROILoopPool, ContextLocNet's object miner, res5's gradient
   through the loop pool's backward; the loop pool saving nothing at
   ``FREEZE_AT`` 5, and all branches trained with a test branch index.
+* The same for the tiny MRRP VGG16 at ``FREEZE_AT`` 4 (inside the MRRP
+  item): plain1 and plain5 train, the plain ROIPool routed by branch
+  records its backward, every gradient and the two updates on the JAX
+  package's plain5 values (see ``_check_mrrp_vgg_train_step``).
 * The port's trainer for two iterations with a checkpoint round trip.
 
 On the CPU the JAX model pools unfused: it gates the pooled tensor, the
@@ -39,7 +43,8 @@ import pytest
 import torch
 
 from torch_port_common import (
-    MRRP_YAML, NUM_CLASSES, TINY_YAML, embeddings, jax_reference, make_batch, tiny_cfg,
+    MRRP_VGG_YAML, MRRP_YAML, NUM_CLASSES, TINY_YAML, embeddings, jax_reference, make_batch,
+    tiny_cfg,
 )
 from wsovod_tpu.models import mil_heads as jmil
 from wsovod_tpu.models import mining as jmine
@@ -569,6 +574,148 @@ def test_mrrp_train_step_matches_jax(monkeypatch):
     assert pooled[0].shape[:2] == (3, 2)
     for k, v in jlosses.items():
         np.testing.assert_allclose(losses[k].item(), float(v), rtol=1e-4, err_msg=f"{k}, branch 1")
+    _check_mrrp_vgg_train_step(monkeypatch)
+
+
+def _check_mrrp_vgg_train_step(monkeypatch):
+    """The tiny MRRP VGG16 (``tiny_cfg(..., MRRP_VGG_YAML)``) as the MRRP
+    R18 above, at ``FREEZE_AT`` 4: plain1 and plain5 train, plain2-4 pass
+    the gradient through, the plain ROIPool routed by branch records its
+    backward. Losses rtol 1e-4, gradients rtol 1e-3 with atol 1e-4 of the
+    largest entry, parameters after two updates rtol 1e-5, atol 1e-7. The SAM rows' random branches are the JAX package's draws.
+
+    The two packages' 13 convs round plain5 differently (relative 3e-6
+    here), enough to flip the RPN conv's ReLU where its pre-activation is
+    within rounding of 0 (one entry here, 1.2e-6 against a scale of 5), and
+    a max pool's gradient goes to its argmax, which a near-tied bin may
+    change. So the losses and the ROI heads' gradients come from the port's
+    own forward, and every gradient and the two updates from a second pass
+    whose plain5 carries the JAX package's values on the port's own graph
+    (``f - f.detach() + value``, exact): plain1's and plain5's gradients
+    still flow through the port's backbone and the routed pool's backward."""
+    from wsovod_tpu.config import get_cfg as jax_get_cfg
+    from wsovod_tpu.models import build_model as jax_build_model
+    from wsovod_tpu.solver.build import build_optimizer as jax_build_optimizer
+
+    monkeypatch.setattr(flax.linen, "Dropout", _NoDropout)
+    jmodel = jax_build_model(_train_cfg(jax_get_cfg(), 4, MRRP_VGG_YAML))
+    params0 = jax.tree_util.tree_map(jnp.asarray, jax_reference(MRRP_VGG_YAML, -1)[1])
+    emb = embeddings()
+    batch = make_batch(2, gt=True)
+    jbatch = {k: jnp.asarray(v) for k, v in batch.items()}
+    model_rng = jax.random.PRNGKey(5)
+
+    def loss_fn(p, it):
+        losses = jmodel.apply(p, jbatch, train=True, iteration=it, rng=model_rng,
+                              embeddings=jnp.asarray(emb))
+        return sum(losses.values()), losses
+
+    grad_fn = jax.jit(jax.value_and_grad(loss_fn, has_aux=True))
+    (_, jlosses), jgrads0 = grad_fn(params0, jnp.asarray(3))
+    jgrads = {k: v.numpy() for k, v in state_dict_from_jax(jgrads0).items()}
+    backbone_fn = jax.jit(lambda p, x: jmodel.apply(
+        p, x, method=lambda m, x: m.backbone(m._normalize(x), train=True)))
+
+    def plain5_fn(p, x):
+        return np.asarray(backbone_fn(p, x)["plain5"])
+
+    jax_plain5 = plain5_fn(params0, jbatch["images"])
+    n_sam = batch["sam_valid"].shape[1]
+    sam_branch = 1000 * np.asarray(jax.random.randint(jax.random.split(model_rng, 3)[1],
+                                                      (2, n_sam), 0, 3))
+    tbatch = {k: _t(v) for k, v in batch.items()}
+    p, r = 16 + n_sam, 3 * 7 * 7 * 6  # three anchor levels of 6 on a 7x7 plain5
+    cfg = _train_cfg(get_cfg(), 4, MRRP_VGG_YAML)
+
+    def port_model():
+        model = build_model(cfg, device="cpu", seed=None)
+        model.load_state_dict(state_dict_from_jax(params0), strict=True)
+        model.train()
+        model.roi_heads.box_head.dropout = 0.0
+        proposals = model._proposals
+
+        def with_jax_sam_branches(*args, **kwargs):
+            props, aux = proposals(*args, **kwargs)
+            level_ids = props.level_ids.clone()
+            level_ids[:, -n_sam:] = _t(sam_branch)
+            return props.replace(level_ids=level_ids), aux
+
+        model._proposals = with_jax_sam_branches
+        pooled = []
+        model.roi_heads.pooler.register_forward_hook(lambda m, i, o: pooled.append(o))
+        step = TrainStep(model, build_optimizer(cfg, model), cfg)
+        step.step = 3
+        return model, step, pooled
+
+    draws = _model_draws(model_rng, 2, p, r)
+
+    def forward(model, step):
+        return model.forward_train(tbatch, _t(emb), iteration=step.step, uniforms=_Replay(draws))
+
+    def check_grads(model, names, what):
+        grads = _grads_by_name(model)
+        assert {n.split(".")[1] for n in grads if n.startswith("backbone.")} == {"plain1", "plain5"}
+        for n in names(grads):
+            atol = max(1e-4 * np.abs(jgrads[n]).max(), 1e-8)
+            np.testing.assert_allclose(grads[n], jgrads[n], rtol=1e-3, atol=atol,
+                                       err_msg=f"grad {n}, {what}")
+
+    # the port's own forward: the losses, the pooled chunk, the ROI heads'
+    # gradients
+    model, step, pooled = port_model()
+    losses = forward(model, step)
+    assert sorted(losses) == sorted(jlosses)
+    for k, v in jlosses.items():
+        np.testing.assert_allclose(losses[k].item(), float(v), rtol=1e-4, err_msg=k)
+    # one routed ROIPool chunk (512 channels), through the Function, which
+    # kept the feature and the source table and no output (the validity
+    # gate needs no gradient)
+    assert len(pooled) == 1 and tuple(pooled[0].shape[:2]) == (2, p)
+    assert type(pooled[0].grad_fn).__name__ == "RoIPoolGatedFunctionBackward"
+    saved = pooled[0].grad_fn.saved_tensors
+    assert saved[0].shape[0] == 6 and saved[3] is not None and saved[4] is None
+    step.backward(losses)
+    check_grads(model, lambda grads: [n for n in grads if n.startswith("roi_heads.")],
+                "the port's forward")
+
+    # the JAX package's two updates, and its plain5 before each
+    tx = jax_build_optimizer(_train_cfg(jax_get_cfg(), 4, MRRP_VGG_YAML), params0["params"])
+
+    @jax.jit
+    def sgd(p, state, g):
+        updates, state = tx.update(g, state, p)
+        return optax.apply_updates(p, updates), state
+
+    opt_state = jax.jit(tx.init)(params0["params"])
+    params, g, jax_plain5 = params0, jgrads0, [jax_plain5]
+    for it in (3, 4):
+        if it > 3:
+            _, g = grad_fn(params, jnp.asarray(it))
+            jax_plain5.append(plain5_fn(params, jbatch["images"]))
+        new, opt_state = sgd(params["params"], opt_state, g["params"])
+        params = {"params": new}
+
+    # every gradient and the two updates, on the JAX package's plain5 values
+    model, step, pooled = port_model()
+    backbone = model.backbone.forward
+
+    def jax_values(x, train=False):
+        out = backbone(x, train=train)
+        out["plain5"] = out["plain5"] - out["plain5"].detach() + _t(jax_plain5.pop(0))
+        return out
+
+    model.backbone.forward = jax_values
+    step.backward(forward(model, step))
+    check_grads(model, lambda grads: grads, "the JAX plain5 values")
+    step.update()
+    step.backward(forward(model, step))
+    assert step.update() and (step.step, step.updates) == (5, 2) and not jax_plain5
+    want = {k: v.numpy() for k, v in state_dict_from_jax(params).items()}
+    init = {k: v.numpy() for k, v in state_dict_from_jax(params0).items()}
+    for n, v in _params_by_name(model).items():
+        np.testing.assert_allclose(v, want[n], rtol=1e-5, atol=1e-7, err_msg=f"param {n}")
+        if n.startswith("backbone."):
+            assert (v == init[n]).all() == (n.split(".")[1] not in ("plain1", "plain5")), n
 
 
 def _check_clipping_and_accumulation():

@@ -8,7 +8,8 @@
   blocked from import;
 * the port's own config tree equals the JAX package's apart from the four
   port defaults, before and after merging the YAMLs; the keys it refuses by
-  name.
+  name; feature names the backbone does not give raise a ``ValueError``
+  naming the key and the backbone's features.
 """
 
 import os
@@ -19,7 +20,9 @@ import numpy as np
 import pytest
 import torch
 
-from torch_port_common import MRRP_YAML, REPO, TINY_YAML, jax_reference, tiny_cfg
+from torch_port_common import (
+    MRRP_VGG_YAML, MRRP_YAML, REPO, TINY_YAML, VGG_YAML, jax_reference, tiny_cfg,
+)
 from wsovod_tpu.utils.weight_import import import_wsovod_model
 from wsovod_torch import check_supported, get_cfg
 from wsovod_torch.models import build_model
@@ -110,19 +113,39 @@ print("OK")
 
 def test_port_config_and_jax_free_import():
     """The port runs with JAX blocked from import, states its own defaults,
-    and refuses every unported key by name."""
+    refuses every unported key by name, and names the feature key that asks
+    for a feature the backbone lacks."""
     _check_port_runs_with_jax_blocked()
     _check_port_defaults()
     for yaml, key, value in ([(TINY_YAML, k, v) for k, v in _UNPORTED]
-                             + [(MRRP_YAML, k, v) for k, v in _UNPORTED_MRRP]):
+                             + [(MRRP_YAML, k, v) for k, v in _UNPORTED_MRRP]
+                             + [(MRRP_VGG_YAML, k, v) for k, v in _UNPORTED_MRRP_VGG]):
         cfg = tiny_cfg(get_cfg(), yaml)
-        node = cfg
-        *parents, leaf = key.split(".")
-        for p in parents:
-            node = getattr(node, p)
-        setattr(node, leaf, value)
+        _set(cfg, key, value)
         with pytest.raises(NotImplementedError, match=key.replace(".", r"\.")):
             build_model(cfg, device="cpu")
+    # the VGG YAMLs as shipped inherit RPN.IN_FEATURES ["res5"]: named, not
+    # a KeyError, and not rewritten; likewise a pooled feature the ResNet
+    # does not give
+    for yaml, key in ((VGG_YAML, "MODEL.RPN.IN_FEATURES"), (MRRP_VGG_YAML, "MODEL.RPN.IN_FEATURES"),
+                      (TINY_YAML, "MODEL.ROI_HEADS.IN_FEATURES")):
+        cfg = get_cfg()
+        cfg.merge_from_file(yaml)
+        cfg.TEST.AUG.ENABLED = False
+        if yaml == TINY_YAML:
+            cfg.MODEL.ROI_HEADS.IN_FEATURES = ["res4"]
+        features = "'plain5'" if "V_16" in yaml else "'res5'"
+        with pytest.raises(ValueError, match=key.replace(".", r"\.") + ".*features are \\[" + features):
+            check_supported(cfg)
+        assert cfg.MODEL.RPN.IN_FEATURES == ["res5"]
+
+
+def _set(cfg, key, value):
+    node = cfg
+    *parents, leaf = key.split(".")
+    for p in parents:
+        node = getattr(node, p)
+    setattr(node, leaf, value)
 
 
 def _check_port_runs_with_jax_blocked():
@@ -157,7 +180,8 @@ def _check_port_defaults():
 
     configs = os.path.join(REPO, "configs", "COCO-Detection")
     for yaml in (None, TINY_YAML, MRRP_YAML, os.path.join(configs, "WSOVOD_WSR_50_DC5_1x.yaml"),
-                 os.path.join(configs, "WSOVOD_MRRP_WSR_50_DC5_1x.yaml")):
+                 os.path.join(configs, "WSOVOD_MRRP_WSR_50_DC5_1x.yaml"), VGG_YAML,
+                 MRRP_VGG_YAML):
         port, ref = get_cfg(), jax_get_cfg()
         if yaml is not None:
             port.merge_from_file(yaml)
@@ -168,10 +192,12 @@ def _check_port_defaults():
         assert differ <= set(_PORT_DEFAULTS), (yaml, differ)
         for k, v in _PORT_DEFAULTS.items():
             assert port[k] == v, (yaml, k)
-        if yaml is not None and "WSR_50" in yaml:
+        if yaml is not None and ("WSR_50" in yaml or "V_16" in yaml):
             cfg = get_cfg()
             cfg.merge_from_file(yaml)
             cfg.TEST.AUG.ENABLED = False
+            if "V_16" in yaml:
+                cfg.MODEL.RPN.IN_FEATURES = ["plain5"]
             check_supported(cfg)
 
 
@@ -180,16 +206,24 @@ _UNPORTED = [
     ("TPU.DAN_FC1_QUANT", "int8"),
     ("TPU.RPN_CONV_QUANT", "int8"),
     ("TPU.BACKBONE_CONV_QUANT", "int8"),
-    ("MODEL.MRRP.MRRP_ON", True),
     ("MODEL.ROI_BOX_HEAD.POOLER_TYPE", "ROIAlignV2"),
     ("MODEL.META_ARCHITECTURE", "GeneralizedRCNN_WSOVOD_MixedDatasets"),
-    ("MODEL.BACKBONE.NAME", "build_vgg_backbone"),
-    ("MODEL.BACKBONE.NAME", "build_mrrp_vgg_backbone"),
+    ("MODEL.BACKBONE.NAME", "build_swin_backbone"),
+    ("MODEL.BACKBONE.NAME", "build_swin_fpn_backbone"),
 ]
-# refused on the MRRP config (ROILoopPool is ported, with or without MRRP)
+# refused on the MRRP config (ROIPool and ROILoopPool are ported, with or
+# without MRRP)
 _UNPORTED_MRRP = [
     ("MODEL.ROI_BOX_HEAD.POOLER_TYPE", "ROIAlignV2"),
     ("MODEL.MRRP.MRRP_STAGE", "res4"),
+    ("MODEL.MRRP.MRRP_STAGE", "plain5"),
     ("MODEL.MRRP.TEST_BRANCH_IDX", 3),
     ("MODEL.MRRP.BRANCH_DILATIONS", [1, 2]),
+]
+# refused on the MRRP VGG16 config
+_UNPORTED_MRRP_VGG = [
+    ("MODEL.VGG.DEPTH", 19),
+    ("MODEL.MRRP.MRRP_STAGE", "plain4"),
+    ("MODEL.MRRP.MRRP_STAGE", "res5"),
+    ("MODEL.ROI_BOX_HEAD.POOLER_TYPE", "ROIAlignV2"),
 ]

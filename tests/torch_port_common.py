@@ -17,6 +17,8 @@ torch.set_num_threads(1)
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TINY_YAML = os.path.join(REPO, "configs", "COCO-Detection", "WSOVOD_WSR_18_DC5_1x.yaml")
 MRRP_YAML = os.path.join(REPO, "configs", "COCO-Detection", "WSOVOD_MRRP_WSR_18_DC5_1x.yaml")
+VGG_YAML = os.path.join(REPO, "configs", "COCO-Detection", "WSOVOD_V_16_DC5_1x.yaml")
+MRRP_VGG_YAML = os.path.join(REPO, "configs", "COCO-Detection", "WSOVOD_MRRP_V_16_DC5_1x.yaml")
 NUM_CLASSES = 5
 WEIGHT_DIM = 16
 
@@ -24,8 +26,12 @@ WEIGHT_DIM = 16
 def tiny_cfg(cfg, yaml: str = TINY_YAML, test_branch_idx=None):
     """The golden-forward overrides (``tests/test_golden_forward.py``) on
     an R18 DC5 config (default the plain one; ``MRRP_YAML`` for MRRP, with
-    ``test_branch_idx`` if given), float32, no int8, no TTA."""
+    ``test_branch_idx`` if given) or a VGG16 one (``VGG_YAML``,
+    ``MRRP_VGG_YAML``; their RPN reads ``plain5``, which the YAMLs leave at
+    the base's ``res5``), float32, no int8, no TTA."""
     cfg.merge_from_file(yaml)
+    if "vgg" in cfg.MODEL.BACKBONE.NAME:
+        cfg.MODEL.RPN.IN_FEATURES = ["plain5"]
     if test_branch_idx is not None:
         cfg.MODEL.MRRP.TEST_BRANCH_IDX = test_branch_idx
     cfg.MODEL.ROI_HEADS.NUM_CLASSES = NUM_CLASSES
@@ -58,6 +64,35 @@ def make_batch(seed: int = 0, b: int = 2, s: int = 12, size: int = 64, gt: bool 
         batch["gt_classes"] = rng.randint(0, NUM_CLASSES, (b, 4)).astype(np.int32)
         batch["gt_valid"] = np.arange(4)[None, :] < rng.randint(1, 5, (b, 1))
     return batch
+
+
+def routed_pool_inputs(seed=0, b=2, n_br=3, h=9, w=13, c=12, n=40, scale=0.125):
+    """Features of ``n_br`` branch copies (branch-major), boxes from the
+    image-scale mix plus hand-made rows, the ``(objectness+1)*valid`` gate
+    and each ROI's source copy ``branch * b + image``."""
+    rng = np.random.RandomState(seed)
+    img_w, img_h = w / scale, h / scale
+    feat = rng.randn(n_br * b, h, w, c).astype(np.float32)
+    xy = rng.uniform(-20, img_w * 0.8, (b, n, 2))
+    rois = np.concatenate([xy, xy + rng.uniform(2, img_w * 0.7, (b, n, 2))], -1)
+    rois[:, 0] = [img_w - 30, img_h - 20, img_w + 60, img_h + 50]  # overhangs right/bottom
+    rois[:, 1] = [-50, -40, 40, 30]  # overhangs left/top: the context's hole exceeds the outer box
+    rois[:, 2] = [50, 40, 20, 10]  # degenerate: x2 < x1, y2 < y1
+    rois[:, 3] = [4, 12, 100, 60]  # ROI region on .5 boundaries
+    rois[:, 4] = [4, 20, 40, 60]  # inner box x1 = 12 on a .5 boundary
+    rois[:, 5] = [20, 28, 60, 68]  # outer box on .5 boundaries (x1 = 4, x2 = 76)
+    rois[:, 6] = [0, 0, img_w, img_h]  # the whole image
+    rois[:, 7] = [30, 30, 31, 31]  # one pixel, the inner hole empty
+    rois[:, 8] = [-400, -300, -200, -100]  # wholly outside
+    valid = rng.rand(b, n) > 0.15
+    valid[:, :9] = True
+    valid[:, 9] = False
+    gate = ((rng.rand(b, n) + 1.0) * valid).astype(np.float32)
+    rois = np.where(valid[..., None], rois, 0.0).astype(np.float32)
+    branch = rng.randint(0, n_br, (b, n))
+    branch[:, :n_br] = np.arange(n_br)  # every branch is read
+    src = (branch * b + np.arange(b)[:, None]).astype(np.int32)
+    return feat, rois, gate, src
 
 
 def embeddings() -> np.ndarray:

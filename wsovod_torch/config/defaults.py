@@ -310,6 +310,10 @@ def get_cfg() -> CN:
 
 
 
+_RESNET_BACKBONES = ("build_wsl_resnet_backbone", "build_mrrp_wsl_resnet_backbone")
+_VGG_BACKBONES = ("build_vgg_backbone", "build_mrrp_vgg_backbone")
+
+
 def _refuse(key: str, value, why: str):
     raise NotImplementedError(
         f"{key}={value!r} is not ported to wsovod_torch yet ({why})"
@@ -322,25 +326,34 @@ def check_supported(cfg: CN) -> None:
     sampling, mining, ``WSOVOD.BBOX_REFINE``) are checked by
     ``check_train_supported``: the reference ignores them at inference too.
 
-    MRRP is ported for the WSR ResNet with the multi-branch stage at res5 and
-    the ``ROILoopPool`` pooler, with all branches at test
-    (``TEST_BRANCH_IDX = -1``) or one (``>= 0``). ``ROILoopPool`` also runs
-    without MRRP; then each ROI pools from its own image."""
+    The backbones are the WSR ResNet and VGG16 (``build_vgg_backbone``,
+    ``build_mrrp_vgg_backbone``). MRRP is ported at the backbone's last
+    stage (res5 or plain5), with the ``ROIPool`` or the ``ROILoopPool``
+    pooler routed by branch, with all branches at test (``TEST_BRANCH_IDX =
+    -1``) or one (``>= 0``). ``ROILoopPool`` also runs without MRRP; then
+    each ROI pools from its own image.
+
+    ``MODEL.RPN.IN_FEATURES`` and ``MODEL.ROI_HEADS.IN_FEATURES`` must name
+    features the backbone gives: a ``ValueError`` names the key and the
+    backbone's features otherwise (the shipped VGG YAMLs inherit
+    ``RPN.IN_FEATURES: ["res5"]`` from their base; set it to
+    ``["plain5"]``)."""
     m = cfg.MODEL
     mrrp = m.MRRP
     pooler = m.ROI_BOX_HEAD.POOLER_TYPE
+    vgg = m.BACKBONE.NAME in _VGG_BACKBONES
+    last_stage = "plain5" if vgg else "res5"
     checks = [
         ("MODEL.META_ARCHITECTURE", m.META_ARCHITECTURE,
          m.META_ARCHITECTURE == "GeneralizedRCNN_WSOVOD", "mixed datasets"),
         ("MODEL.BACKBONE.NAME", m.BACKBONE.NAME,
-         m.BACKBONE.NAME in ("build_wsl_resnet_backbone", "build_mrrp_wsl_resnet_backbone"),
-         "VGG/Swin backbones"),
+         m.BACKBONE.NAME in _RESNET_BACKBONES + _VGG_BACKBONES, "Swin and other backbones"),
+        ("MODEL.VGG.DEPTH", m.VGG.DEPTH, not vgg or m.VGG.DEPTH == 16, "VGG other than VGG16"),
         ("MODEL.ROI_BOX_HEAD.POOLER_TYPE", pooler,
          pooler in ("ROIPool", "ROILoopPool"), "the ROIAlignV2 pooler"),
-        ("MODEL.MRRP.MRRP_ON", mrrp.MRRP_ON,
-         not mrrp.MRRP_ON or pooler == "ROILoopPool", "MRRP with a pooler other than ROILoopPool"),
         ("MODEL.MRRP.MRRP_STAGE", mrrp.MRRP_STAGE,
-         not mrrp.MRRP_ON or mrrp.MRRP_STAGE == "res5", "MRRP stages other than res5"),
+         not mrrp.MRRP_ON or mrrp.MRRP_STAGE == last_stage,
+         f"MRRP stages other than the backbone's last, {last_stage}"),
         ("MODEL.MRRP.BRANCH_DILATIONS", list(mrrp.BRANCH_DILATIONS),
          not mrrp.MRRP_ON or len(mrrp.BRANCH_DILATIONS) == mrrp.NUM_BRANCH,
          "one dilation per branch"),
@@ -348,9 +361,9 @@ def check_supported(cfg: CN) -> None:
          not mrrp.MRRP_ON or -1 <= mrrp.TEST_BRANCH_IDX < mrrp.NUM_BRANCH,
          "-1 (all branches) or a branch index"),
         ("MODEL.RESNETS.DEFORM_ON_PER_STAGE", list(m.RESNETS.DEFORM_ON_PER_STAGE),
-         not any(m.RESNETS.DEFORM_ON_PER_STAGE), "deformable convs"),
+         vgg or not any(m.RESNETS.DEFORM_ON_PER_STAGE), "deformable convs"),
         ("MODEL.RESNETS.NORM", m.RESNETS.NORM,
-         m.RESNETS.NORM in ("FrozenBN", "BN", "SyncBN"), "norms other than frozen BN"),
+         vgg or m.RESNETS.NORM in ("FrozenBN", "BN", "SyncBN"), "norms other than frozen BN"),
         ("MODEL.PROPOSAL_GENERATOR.NAME", m.PROPOSAL_GENERATOR.NAME,
          m.PROPOSAL_GENERATOR.NAME == "WSOVODRPN_V2", "other proposal generators"),
         ("MODEL.RPN.HEAD_NAME", m.RPN.HEAD_NAME,
@@ -390,14 +403,21 @@ def check_supported(cfg: CN) -> None:
     for key, value, ok, why in checks:
         if not ok:
             _refuse(key, value, why)
+    names = list((m.VGG if vgg else m.RESNETS).OUT_FEATURES)
+    for key, value in (("MODEL.RPN.IN_FEATURES", m.RPN.IN_FEATURES),
+                       ("MODEL.ROI_HEADS.IN_FEATURES", m.ROI_HEADS.IN_FEATURES)):
+        missing = [f for f in value if f not in names]
+        if missing:
+            raise ValueError(f"{key}={list(value)!r} names {missing}, which the backbone "
+                             f"{m.BACKBONE.NAME} does not give: its features are {names}")
 
 
 def check_train_supported(cfg: CN) -> None:
     """``check_supported`` plus the keys that only act during training:
     raise ``NotImplementedError`` naming the first one that asks for a path
     the port's trainer does not have. Training is ported for every detector
-    ``check_supported`` admits: plain with ``ROIPool`` or ``ROILoopPool``,
-    MRRP at res5 with ``ROILoopPool``. ``WSOVOD.BBOX_REFINE`` is the
+    ``check_supported`` admits: WSR ResNet or VGG16, plain with ``ROIPool``
+    or ``ROILoopPool``, MRRP at the last stage with either pooler. ``WSOVOD.BBOX_REFINE`` is the
     trainer's to handle (``engine/trainer.py``)."""
     check_supported(cfg)
     m = cfg.MODEL

@@ -2,10 +2,12 @@
 //
 // Replaces the TPU kernel wsovod_tpu/ops/pallas/roi_pool_fused.py
 // roi_pool_fused_batched (loop_pool=False, quant="none"), the ROI pooler of
-// the slice's main path. It computes, for every image b and ROI n,
+// the slice's main path, with or without its per-ROI source table (src_tbl,
+// as roi_pool_fused_branched_ad reaches it for MRRP with the plain ROIPool).
+// It computes, for every image b and ROI n,
 //
-//   out[b, n, ph, pw, c] = roi_pool(feat[b], rois[b], P, scale)[n, ph, pw, c_base + c]
-//                          * gate[b, n]
+//   out[b, n, ph, pw, c] = roi_pool(feat[s], rois[b], P, scale)[n, ph, pw, c_base + c]
+//                          * gate[b, n],   s = src ? src[b, n] : b
 //
 // with the semantics of wsovod_tpu/ops/roi_pool.py::roi_pool (torchvision's
 // exact max RoIPool): the rounded integer region (x1, y1, w, h) arrives
@@ -16,9 +18,11 @@
 // -1e30 fill value, writes 0. The gate arrives in the feature dtype and the
 // product is rounded once, as the reference's `pooled * gate.astype(dtype)`.
 //
-// Layout: feat is NHWC [B, H, W, C]; out is [B, N, P, P, c_take], so the DAN's
-// fc1 contracts a chunk as a plain [B*N, P*P*c_take] x [P*P*c_take, F] product
-// with no relayout.
+// Layout: feat is NHWC [S, H, W, C], S feature copies (S = B without src; the
+// MRRP branch-major concat, S = n_br * B, where src[b, n] = branch * B + b);
+// out is [B, N, P, P, c_take], so the DAN's fc1 contracts a chunk as a plain
+// [B*N, P*P*c_take] x [P*P*c_take, F] product with no relayout. Each ROI
+// reads its own copy through src, so nothing is sorted by branch.
 //
 // Design (first, simple version): one block per (ROI, image); each thread owns
 // two adjacent channels (one 4-byte bf16x2 or 8-byte float2 load per pixel, so
@@ -59,14 +63,16 @@ __device__ __forceinline__ int clip(int v, int hi) { return v < 0 ? 0 : (v > hi 
 
 template <typename T>
 __global__ void roi_pool_gated_kernel(const T* __restrict__ feat, const int4* __restrict__ region,
-                                      const T* __restrict__ gate, T* __restrict__ out, int H, int W,
-                                      int C, int N, int c_base, int c_take, int P, float neg_floor) {
+                                      const int* __restrict__ src, const T* __restrict__ gate,
+                                      T* __restrict__ out, int H, int W, int C, int N, int c_base,
+                                      int c_take, int P, float neg_floor) {
   using V = typename Pair<T>::V;
   const int n = blockIdx.x;
   const int b = blockIdx.y;
   const int4 r = region[(size_t)b * N + n];  // (x1, y1, w, h), w and h >= 1
   const float g = Pair<T>::scalar(gate + (size_t)b * N + n);
-  const T* fb = feat + (size_t)b * H * W * C + c_base;
+  const int copy = src != nullptr ? src[(size_t)b * N + n] : b;  // the feature copy
+  const T* fb = feat + (size_t)copy * H * W * C + c_base;
   V* ob = reinterpret_cast<V*>(out + ((size_t)b * N + n) * P * P * c_take);
   const int pairs = c_take / 2;
   const size_t row_pairs = (size_t)W * C / 2;  // one image row, in channel pairs
@@ -100,34 +106,38 @@ __global__ void roi_pool_gated_kernel(const T* __restrict__ feat, const int4* __
 }
 
 template <typename T>
-int launch(const void* feat, const void* region, const void* gate, void* out, int B, int H, int W,
-           int C, int N, int c_base, int c_take, int P, float neg_floor, void* stream) {
+int launch(const void* feat, const void* region, const void* src, const void* gate, void* out,
+           int B, int H, int W, int C, int N, int c_base, int c_take, int P, float neg_floor,
+           void* stream) {
   if (B == 0 || N == 0 || c_take == 0) return 0;
   const int pairs = c_take / 2;
   const int threads = pairs < 256 ? pairs : 256;
   const dim3 grid(N, B);
   roi_pool_gated_kernel<T><<<grid, threads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(feat), static_cast<const int4*>(region), static_cast<const T*>(gate),
-      static_cast<T*>(out), H, W, C, N, c_base, c_take, P, neg_floor);
+      static_cast<const T*>(feat), static_cast<const int4*>(region), static_cast<const int*>(src),
+      static_cast<const T*>(gate), static_cast<T*>(out), H, W, C, N, c_base, c_take, P, neg_floor);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 // Plain C entry points for ctypes. Pointers are device pointers; `region` is
-// int32 [B, N, 4], `gate` is [B, N] in the feature dtype, `out` is
+// int32 [B, N, 4]; `src` int32 [B, N], each entry in [0, S), or null (ROI n
+// of image b reads copy b); `gate` is [B, N] in the feature dtype, `out` is
 // [B, N, P, P, c_take]. c_base, c_take and C must be even. Returns the
 // cudaError_t of the launch (0 on success).
-extern "C" int wsovod_roi_pool_gated_bf16(const void* feat, const void* region, const void* gate,
-                                          void* out, int B, int H, int W, int C, int N, int c_base,
-                                          int c_take, int P, float neg_floor, void* stream) {
-  return launch<__nv_bfloat16>(feat, region, gate, out, B, H, W, C, N, c_base, c_take, P,
+extern "C" int wsovod_roi_pool_gated_bf16(const void* feat, const void* region, const void* src,
+                                          const void* gate, void* out, int B, int H, int W, int C,
+                                          int N, int c_base, int c_take, int P, float neg_floor,
+                                          void* stream) {
+  return launch<__nv_bfloat16>(feat, region, src, gate, out, B, H, W, C, N, c_base, c_take, P,
                                neg_floor, stream);
 }
 
-extern "C" int wsovod_roi_pool_gated_f32(const void* feat, const void* region, const void* gate,
-                                         void* out, int B, int H, int W, int C, int N, int c_base,
-                                         int c_take, int P, float neg_floor, void* stream) {
-  return launch<float>(feat, region, gate, out, B, H, W, C, N, c_base, c_take, P, neg_floor,
+extern "C" int wsovod_roi_pool_gated_f32(const void* feat, const void* region, const void* src,
+                                         const void* gate, void* out, int B, int H, int W, int C,
+                                         int N, int c_base, int c_take, int P, float neg_floor,
+                                         void* stream) {
+  return launch<float>(feat, region, src, gate, out, B, H, W, C, N, c_base, c_take, P, neg_floor,
                        stream);
 }

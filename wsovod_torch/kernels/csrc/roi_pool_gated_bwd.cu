@@ -1,11 +1,14 @@
 // Backward of the gated exact max RoIPool over one channel chunk, for Hopper
 // (sm_90a).
 //
-// Replaces the backward of the TPU kernel's differentiable wrapper,
-// wsovod_tpu/ops/pallas/roi_pool_fused.py roi_pool_fused_ad (_pool_ad_bwd),
-// whose forward is roi_pool_fused_batched (loop_pool=False). Given the
-// forward's out[b, n, ph, pw, c] = roi_pool(feat[b], rois[b])[n, ph, pw,
-// c_base + c] * gate[b, n] and its cotangent g of the same shape, it computes
+// Replaces the backward of the TPU kernel's differentiable wrappers,
+// wsovod_tpu/ops/pallas/roi_pool_fused.py roi_pool_fused_ad (_pool_ad_bwd)
+// and, with a per-ROI source copy, roi_pool_fused_branched_ad
+// (_pool_branched_bwd, loop_pool=False: MRRP with the plain ROIPool), whose
+// forward is roi_pool_fused_batched (loop_pool=False). Given the forward's
+// out[b, n, ph, pw, c] = roi_pool(feat[s], rois[b])[n, ph, pw, c_base + c] *
+// gate[b, n], s = src ? src[b, n] : b, and its cotangent g of the same shape,
+// it computes
 //
 //   g_gate[b, n] = sum_{ph, pw, c} g * out / gate   where |gate| > 1e-8, else 0
 //   g_feat       = the VJP of roi_pool(feat) * gate at g, with JAX's tie rule.
@@ -22,10 +25,12 @@
 // are the common case: a single-argmax backward would be wrong.
 //
 // Overlapping bins and ROIs add onto one pixel, so the feature cotangent is
-// accumulated with float32 atomics into a zeroed float32 scratch [B, H, W,
-// c_take] that the wrapper casts to the feature dtype: the result equals the
-// plain version to float tolerance, not bit for bit (the order of the adds
-// varies from run to run).
+// accumulated with float32 atomics into a zeroed float32 scratch [S, H, W,
+// c_take] over every feature copy (S = B without src, n_br * B for the MRRP
+// branch concat), which the wrapper casts to the feature dtype: the result
+// equals the plain version to float tolerance, not bit for bit (the order of
+// the adds varies from run to run). Each ROI adds into its own copy's
+// scratch, so nothing is sorted by branch.
 //
 // Design (first, simple version, as the forward kernel): one block per (ROI,
 // image); each thread owns two adjacent channels. Per bin it reads the bin
@@ -64,6 +69,7 @@ __device__ __forceinline__ int clip(int v, int hi) { return v < 0 ? 0 : (v > hi 
 
 template <typename T>
 __global__ void roi_pool_gated_bwd_kernel(const T* __restrict__ feat, const int4* __restrict__ region,
+                                          const int* __restrict__ src,
                                           const T* __restrict__ gate_dt,
                                           const float* __restrict__ gate_f32,
                                           const T* __restrict__ g, const T* __restrict__ out,
@@ -101,8 +107,9 @@ __global__ void roi_pool_gated_bwd_kernel(const T* __restrict__ feat, const int4
   const int4 r = region[roi];  // (x1, y1, w, h), w and h >= 1
   const float gate = Pair<T>::scalar(gate_dt + roi);
   if (gate == 0.0f) return;  // every cotangent of this ROI is multiplied by 0
-  const T* fb = feat + (size_t)b * H * W * C + c_base;
-  float* sb = scratch + (size_t)b * H * W * c_take;
+  const int copy = src != nullptr ? src[roi] : b;  // the feature copy
+  const T* fb = feat + (size_t)copy * H * W * C + c_base;
+  float* sb = scratch + (size_t)copy * H * W * c_take;
   const size_t row_pairs = (size_t)W * C / 2;  // one image row, in channel pairs
   const int pix_pairs = C / 2;
 
@@ -158,16 +165,17 @@ __global__ void roi_pool_gated_bwd_kernel(const T* __restrict__ feat, const int4
 }
 
 template <typename T>
-int launch(const void* feat, const void* region, const void* gate_dt, const void* gate_f32,
-           const void* g, const void* out, void* scratch, void* g_gate, int B, int H, int W, int C,
-           int N, int c_base, int c_take, int P, float neg_floor, void* stream) {
+int launch(const void* feat, const void* region, const void* src, const void* gate_dt,
+           const void* gate_f32, const void* g, const void* out, void* scratch, void* g_gate, int B,
+           int H, int W, int C, int N, int c_base, int c_take, int P, float neg_floor,
+           void* stream) {
   if (B == 0 || N == 0 || c_take == 0) return 0;
   const int pairs = c_take / 2;
   int threads = pairs < 256 ? pairs : 256;
   threads = (threads + 31) / 32 * 32;  // whole warps for the g_gate reduction
   const dim3 grid(N, B);
   roi_pool_gated_bwd_kernel<T><<<grid, threads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(feat), static_cast<const int4*>(region),
+      static_cast<const T*>(feat), static_cast<const int4*>(region), static_cast<const int*>(src),
       static_cast<const T*>(gate_dt), static_cast<const float*>(gate_f32),
       static_cast<const T*>(g), static_cast<const T*>(out), static_cast<float*>(scratch),
       static_cast<float*>(g_gate), H, W, C, N, c_base, c_take, P, neg_floor);
@@ -176,29 +184,30 @@ int launch(const void* feat, const void* region, const void* gate_dt, const void
 
 }  // namespace
 
-// Plain C entry points for ctypes. Pointers are device pointers: feat [B, H,
-// W, C]; region int32 [B, N, 4]; gate_dt [B, N] in the feature dtype (as the
+// Plain C entry points for ctypes. Pointers are device pointers: feat [S, H,
+// W, C]; region int32 [B, N, 4]; src int32 [B, N] in [0, S), or null (ROI n of
+// image b reads copy b, S = B); gate_dt [B, N] in the feature dtype (as the
 // forward used it) and gate_f32 [B, N] float32; g and out [B, N, P, P,
 // c_take]. `out` and `g_gate` [B, N] float32 are both null or both set (the
-// gate cotangent); `scratch` float32 [B, H, W, c_take], zeroed, is null when
+// gate cotangent); `scratch` float32 [S, H, W, c_take], zeroed, is null when
 // the feature cotangent is not wanted. c_base, c_take and C must be even.
 // Returns the cudaError_t of the launch (0 on success).
 extern "C" int wsovod_roi_pool_gated_bwd_bf16(const void* feat, const void* region,
-                                              const void* gate_dt, const void* gate_f32,
-                                              const void* g, const void* out, void* scratch,
-                                              void* g_gate, int B, int H, int W, int C, int N,
-                                              int c_base, int c_take, int P, float neg_floor,
-                                              void* stream) {
-  return launch<__nv_bfloat16>(feat, region, gate_dt, gate_f32, g, out, scratch, g_gate, B, H, W,
-                               C, N, c_base, c_take, P, neg_floor, stream);
+                                              const void* src, const void* gate_dt,
+                                              const void* gate_f32, const void* g, const void* out,
+                                              void* scratch, void* g_gate, int B, int H, int W,
+                                              int C, int N, int c_base, int c_take, int P,
+                                              float neg_floor, void* stream) {
+  return launch<__nv_bfloat16>(feat, region, src, gate_dt, gate_f32, g, out, scratch, g_gate, B,
+                               H, W, C, N, c_base, c_take, P, neg_floor, stream);
 }
 
 extern "C" int wsovod_roi_pool_gated_bwd_f32(const void* feat, const void* region,
-                                             const void* gate_dt, const void* gate_f32,
-                                             const void* g, const void* out, void* scratch,
-                                             void* g_gate, int B, int H, int W, int C, int N,
-                                             int c_base, int c_take, int P, float neg_floor,
-                                             void* stream) {
-  return launch<float>(feat, region, gate_dt, gate_f32, g, out, scratch, g_gate, B, H, W, C, N,
-                       c_base, c_take, P, neg_floor, stream);
+                                             const void* src, const void* gate_dt,
+                                             const void* gate_f32, const void* g, const void* out,
+                                             void* scratch, void* g_gate, int B, int H, int W,
+                                             int C, int N, int c_base, int c_take, int P,
+                                             float neg_floor, void* stream) {
+  return launch<float>(feat, region, src, gate_dt, gate_f32, g, out, scratch, g_gate, B, H, W, C,
+                       N, c_base, c_take, P, neg_floor, stream);
 }

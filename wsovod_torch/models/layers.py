@@ -44,24 +44,27 @@ def get_norm(norm: str, features: int):
 
 
 class ConvNorm(nn.Module):
-    """Conv (no bias) + optional frozen norm, d2's ``Conv2d(norm=...)``.
-    Padding is the explicit symmetric ``d*(k-1)//2`` of the reference, not
-    "same". ``forward(x, dilation=d)`` runs the same weight at dilation
-    ``d`` (padding ``d*(k-1)//2``): MRRP's shared-weight branches."""
+    """Conv (with a bias only if ``bias``: VGG's convs) + optional frozen
+    norm, d2's ``Conv2d(norm=...)``. Padding is the explicit symmetric
+    ``d*(k-1)//2`` of the reference, not "same". ``forward(x, dilation=d)``
+    runs the same weight at dilation ``d`` (padding ``d*(k-1)//2``): MRRP's
+    shared-weight branches."""
 
     def __init__(self, in_channels, out_channels, kernel_size=3, stride=1, dilation=1,
-                 groups=1, norm="FrozenBN"):
+                 groups=1, norm="FrozenBN", bias=False):
         super().__init__()
         self.stride, self.dilation, self.groups = stride, dilation, groups
         self.kernel_size = kernel_size
         self.weight = nn.Parameter(
             torch.empty(out_channels, in_channels // groups, kernel_size, kernel_size)
         )
+        self.bias = nn.Parameter(torch.empty(out_channels)) if bias else None
         self.norm = get_norm(norm, out_channels)
 
     def forward(self, x: torch.Tensor, dilation: Optional[int] = None) -> torch.Tensor:
         d = self.dilation if dilation is None else dilation
-        x = F.conv2d(x, self.weight.to(x.dtype), None, self.stride, d * (self.kernel_size - 1) // 2,
+        b = None if self.bias is None else self.bias.to(x.dtype)
+        x = F.conv2d(x, self.weight.to(x.dtype), b, self.stride, d * (self.kernel_size - 1) // 2,
                      d, self.groups)
         return self.norm(x) if self.norm is not None else x
 

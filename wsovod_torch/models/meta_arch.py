@@ -178,7 +178,9 @@ def init_parameters(model: GeneralizedRCNN_WSOVOD, generator: torch.Generator) -
     delta overflows, so the RPN proposes nothing; these scales keep res5 at
     a standard deviation of about 0.3 and give the RPN valid proposals."""
     for name, p in model.named_parameters():
-        if name.startswith("backbone."):
+        if name.startswith("backbone.") and p.dim() == 1:  # VGG's conv biases
+            p.zero_()
+        elif name.startswith("backbone."):
             o, _, kh, kw = p.shape
             p.normal_(0.0, math.sqrt(2.0 / (o * kh * kw)), generator=generator)
         elif name.startswith("proposal_generator."):

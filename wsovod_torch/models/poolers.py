@@ -18,7 +18,10 @@ frame and context rows feed nothing; in training it pools all three (``[3,
 B, N, P, P, c]``), for the object miner (see ``roi_heads.py``). Under MRRP
 the feature is the branch-major concat ``[n_br * B, H, W, C]``; ROI ``n`` of
 image ``b`` reads copy ``branch * B + b`` with ``branch = (level_ids //
-1000) % n_br``, passed to the kernel per ROI. The JAX package's
+1000) % n_br``, passed to either pool's kernel per ROI (the plain ROIPool
+of the MRRP VGG16, as ``wsovod_tpu/models/poolers.py:808-840``, and the
+ROILoopPool). A plain ROIPool on a feature of one copy per image passes no
+``src``. The JAX package's
 ``branch_partition`` sort and unsort exist only because a TPU block reads
 one branch's tile; a per-ROI source index needs neither. None of its TPU
 schedule toggles (hpyr, wsplit, cls, n56c, tile8, maxabs, fullrow) exist
@@ -54,30 +57,32 @@ class ROIPooler(nn.Module):
     def forward(self, feat: torch.Tensor, boxes: torch.Tensor, gate: torch.Tensor,
                 c_base: int, c_take: int, src: Optional[torch.Tensor] = None,
                 rows: int = 1) -> torch.Tensor:
-        """One gated chunk ``[B, N, P, P, c_take]``: ``roi_pool_gated``, or
-        the ROI row of ``roi_loop_pool_gated`` reading copy ``src [B, N]``;
-        with ``rows`` 3 all of its rows, ``[3, B, N, P, P, c_take]``. Both
+        """One gated chunk ``[B, N, P, P, c_take]``: ``roi_pool_gated``
+        reading copy ``src [B, N]`` (``None``: each ROI its own image), or
+        the ROI row of ``roi_loop_pool_gated`` reading copy ``src``; with
+        ``rows`` 3 all of its rows, ``[3, B, N, P, P, c_take]``. Both
         differentiable."""
         if self.pooler_type == "ROILoopPool":
             out = RoILoopPoolGatedFunction.apply(feat, boxes, gate, src, c_base, c_take, rows,
                                                  self.output_size, self.scale, self.context_ratio)
             return out[0] if rows == 1 else out
         return RoIPoolGatedFunction.apply(feat, boxes, gate, c_base, c_take, self.output_size,
-                                          self.scale)
+                                          self.scale, src)
 
     def chunks(self, feat: torch.Tensor, boxes: torch.Tensor, gate: torch.Tensor,
                valid: torch.Tensor, c_take: int, level_ids: Optional[torch.Tensor] = None,
                rows: int = 1) -> Iterator[torch.Tensor]:
         """Lazily pool every channel chunk of ``feat [S, H, W, C]`` for
         ``boxes [B, N, 4]`` (zeroed where not ``valid``), gated by ``gate
-        [B, N]``; ``S`` is ``B``, or ``n_br * B`` for an MRRP ROILoopPool
-        routed by ``level_ids``, whose chunks have ``rows`` rows."""
+        [B, N]``; ``S`` is ``B``, or ``n_br * B`` under MRRP, where each ROI
+        reads its branch's copy by ``level_ids``. ROILoopPool chunks have
+        ``rows`` rows."""
         gate = gate.float().contiguous()
         zero = torch.zeros((), dtype=torch.float32, device=boxes.device)
         boxes = torch.where(valid[..., None], boxes.float(), zero).contiguous()
+        b = boxes.shape[0]
         src = None
-        if self.pooler_type == "ROILoopPool":
-            b = boxes.shape[0]
+        if self.pooler_type == "ROILoopPool" or feat.shape[0] != b:
             n_br = feat.shape[0] // b
             image = torch.arange(b, dtype=torch.int32, device=boxes.device)[:, None]
             branch = (torch.zeros(boxes.shape[:2], dtype=torch.int32, device=boxes.device)

@@ -6,12 +6,16 @@ with ``loop_pool=False``, and with ``loop_pool=True`` and ``src_tbl``, for the
 TPU kernels they replace).
 
 ``roi_pool_gated(feat, rois, gate, c_base, c_take, output_size,
-spatial_scale)`` returns, for every image ``b``,
-``roi_pool(feat[b], rois[b], P, scale)[..., c_base:c_base+c_take] *
-gate[b, :, None, None, None]`` as ``[B, N, P, P, c_take]`` in ``feat``'s
-dtype, with the gate rounded to that dtype first (as the reference's
-``pooled * gate.astype(pooled.dtype)``), so the kernel and the plain version
-agree bit for bit in bfloat16 and float32.
+spatial_scale, src)`` returns, for every image ``b`` and ROI ``n``,
+``roi_pool(feat[src[b, n]], rois[b], P, scale)[n, ..., c_base:c_base+c_take]
+* gate[b, n]`` as ``[B, N, P, P, c_take]`` in ``feat``'s dtype, with the
+gate rounded to that dtype first (as the reference's ``pooled *
+gate.astype(pooled.dtype)``), so the kernel and the plain version agree bit
+for bit in bfloat16 and float32. Without ``src`` ROI ``n`` of image ``b``
+reads ``feat[b]``; with it, MRRP's plain ROIPool reads its branch's copy
+``branch * B + b`` of the branch-major concat (the counterpart of
+``roi_pool_fused_batched`` with ``loop_pool=False`` and ``src_tbl``,
+reached from ``roi_pool_fused_branched_ad``, ``roi_pool_fused.py:2198``).
 
 ``roi_loop_pool_gated(feat, rois, gate, src, c_base, c_take, rows,
 output_size, spatial_scale, context_ratio)`` returns, for every image ``b``
@@ -23,11 +27,13 @@ reads (MRRP: ``branch * B + b`` of the branch-major concat), so the ROIs
 need no sorting by branch. The same rounding of the gate holds.
 
 ``RoIPoolGatedFunction`` makes ``roi_pool_gated`` differentiable (the
-counterpart of ``roi_pool_fused_ad``, ``roi_pool_fused.py:2109``): its
+counterpart of ``roi_pool_fused_ad``, ``roi_pool_fused.py:2109``, and with
+``src`` of ``roi_pool_fused_branched_ad`` with ``loop_pool=False``): its
 backward is ``roi_pool_gated_bwd``, a third kernel, whose feature cotangent
-splits each bin's cotangent equally among the pixels that tie its max, as
-``jnp.max``'s VJP does at both stages of the reference's separable max, and
-whose gate cotangent is ``sum(g * out) / gate`` where ``|gate| > 1e-8``.
+``[S, H, W, c]`` splits each bin's cotangent equally among the pixels of
+the ROI's copy that tie its max, as ``jnp.max``'s VJP does at both stages of
+the reference's separable max, and whose gate cotangent is ``sum(g * out) /
+gate`` where ``|gate| > 1e-8``.
 
 ``RoILoopPoolGatedFunction`` does the same for ``roi_loop_pool_gated`` (the
 counterpart of ``roi_pool_fused_branched_ad``, ``:2198``, and of
@@ -70,6 +76,10 @@ def _kernel(source: str, entry: str, dtype: torch.dtype, argtypes):
     return fn
 
 
+def _ptr(t: Optional[torch.Tensor]):
+    return None if t is None else t.data_ptr()
+
+
 def round_region(rois: torch.Tensor, spatial_scale: float) -> torch.Tensor:
     """Rounded integer region ``(x1, y1, w, h)`` per ROI, int32 ``[..., 4]``.
 
@@ -93,6 +103,21 @@ def _bin_edges(start: torch.Tensor, size: torch.Tensor, pooled: int, limit: int)
     return lo.clamp(0, limit), hi.clamp(0, limit)
 
 
+def _roi_groups(src: Optional[torch.Tensor], i: int, n: int, step: int):
+    """``(copy, sel)`` for image ``i``'s ``n`` ROIs in groups of at most
+    ``step``: without ``src`` copy ``i`` and slices of the ROIs in order;
+    with ``src [B, N]`` each copy that image ``i``'s ROIs read and the
+    indices of those ROIs."""
+    if src is None:
+        for lo in range(0, n, step):
+            yield i, slice(lo, min(n, lo + step))
+        return
+    for s in torch.unique(src[i]).tolist():
+        idx = torch.nonzero(src[i] == s).squeeze(1)
+        for lo in range(0, idx.numel(), step):
+            yield s, idx[lo : lo + step]
+
+
 def roi_pool_gated_plain(
     feat: torch.Tensor,
     rois: torch.Tensor,
@@ -102,12 +127,17 @@ def roi_pool_gated_plain(
     output_size: int = 7,
     spatial_scale: float = 1.0,
     max_elems: int = 1 << 27,
+    src: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """The plain PyTorch version: the reference's separable masked max (max
     over each bin's columns, then over its rows), in ROI chunks sized so the
-    ``[n, P, H, W, c]`` masked temporary stays under ``max_elems``."""
-    b, h_lim, w_lim, _ = feat.shape
-    n, p = rois.shape[1], output_size
+    ``[n, P, H, W, c]`` masked temporary stays under ``max_elems``; ROI
+    ``n`` of image ``b`` pools from ``feat[src[b, n]]`` (``feat[b]``
+    without ``src``), as ``wsovod_tpu/models/poolers.py:808-840`` pools
+    every copy and keeps each ROI's."""
+    _, h_lim, w_lim, _ = feat.shape
+    b, n = rois.shape[:2]
+    p = output_size
     f = feat[..., c_base : c_base + c_take]
     reg = round_region(rois, spatial_scale)
     hlo, hhi = _bin_edges(reg[..., 1], reg[..., 3], p, h_lim)  # [B, N, P]
@@ -119,30 +149,46 @@ def roi_pool_gated_plain(
     step = max(1, max_elems // max(1, p * h_lim * w_lim * c_take))
     out = torch.empty((b, n, p, p, c_take), dtype=feat.dtype, device=feat.device)
     for i in range(b):
-        fi = f[i]
-        for s in range(0, n, step):
-            e = min(n, s + step)
-            row_in = (hidx >= hlo[i, s:e, :, None]) & (hidx < hhi[i, s:e, :, None])  # [n, P, H]
-            col_in = (widx >= wlo[i, s:e, :, None]) & (widx < whi[i, s:e, :, None])  # [n, P, W]
-            colmax = torch.where(col_in[:, :, None, :, None], fi[None, None], neg).amax(dim=3)
+        for s, sel in _roi_groups(src, i, n, step):
+            row_in = (hidx >= hlo[i, sel, :, None]) & (hidx < hhi[i, sel, :, None])  # [n, P, H]
+            col_in = (widx >= wlo[i, sel, :, None]) & (widx < whi[i, sel, :, None])  # [n, P, W]
+            colmax = torch.where(col_in[:, :, None, :, None], f[s][None, None], neg).amax(dim=3)
             pooled = torch.where(row_in[:, :, None, :, None], colmax[:, None], neg).amax(dim=3)
             pooled = torch.where(pooled <= neg, torch.zeros((), dtype=feat.dtype, device=feat.device), pooled)
-            out[i, s:e] = pooled * g[i, s:e, None, None, None]
+            out[i, sel] = pooled * g[i, sel, None, None, None]
     return out
 
 
-def _check(feat, rois, gate, c_base, c_take):
+def _check_src(feat, src, b, n):
+    """``src [B, N]``, integer, on ``feat``'s device; on the CPU its range
+    ``[0, S)`` is checked here (on the card by ``_src32``)."""
+    if src.shape != (b, n):
+        raise ValueError(f"src must be [B, N] = {(b, n)}, got {tuple(src.shape)}")
+    if src.dtype not in (torch.int32, torch.int64):
+        raise TypeError(f"src must be an integer tensor, not {src.dtype}")
+    if src.device != feat.device:
+        raise ValueError("feat and src must be on one device")
+    if feat.device.type == "cpu" and src.numel() and not (
+            0 <= int(src.min()) and int(src.max()) < feat.shape[0]):
+        raise ValueError(f"src must lie in [0, {feat.shape[0]})")
+
+
+def _check(feat, rois, gate, c_base, c_take, src=None):
     if feat.dim() != 4:
-        raise ValueError(f"feat must be [B, H, W, C], got {tuple(feat.shape)}")
-    b, _, _, c = feat.shape
-    if rois.shape != (b, rois.shape[1], 4):
-        raise ValueError(f"rois must be [B, N, 4], got {tuple(rois.shape)}")
-    if gate.shape != rois.shape[:2]:
+        raise ValueError(f"feat must be [S, H, W, C], got {tuple(feat.shape)}")
+    b, n = rois.shape[:2]
+    c = feat.shape[3]
+    if rois.shape != (b, n, 4) or (src is None and b != feat.shape[0]):
+        raise ValueError(f"rois must be [B, N, 4] with B = {feat.shape[0]} feature copies "
+                         f"unless src is given, got {tuple(rois.shape)}")
+    if gate.shape != (b, n):
         raise ValueError(f"gate must be [B, N], got {tuple(gate.shape)}")
     if not (0 <= c_base and c_take > 0 and c_base + c_take <= c):
         raise ValueError(f"channel chunk [{c_base}, {c_base + c_take}) outside C={c}")
     if not (rois.device == gate.device == feat.device):
         raise ValueError("feat, rois and gate must be on one device")
+    if src is not None:
+        _check_src(feat, src, b, n)
 
 
 def roi_pool_gated(
@@ -153,36 +199,43 @@ def roi_pool_gated(
     c_take: int,
     output_size: int = 7,
     spatial_scale: float = 1.0,
+    src: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
-    """Gated pool of channels ``[c_base, c_base + c_take)``: ``feat [B, H, W,
-    C]`` (NHWC, contiguous), ``rois [B, N, 4]`` XYXY image coordinates,
-    ``gate [B, N]`` -> ``[B, N, P, P, c_take]``. The output keeps (ph, pw, c)
-    innermost so fc1 reads a chunk as ``[B*N, P*P*c_take]`` with no copy."""
+    """Gated pool of channels ``[c_base, c_base + c_take)``: ``feat [S, H,
+    W, C]`` (NHWC, contiguous), ``rois [B, N, 4]`` XYXY image coordinates,
+    ``gate [B, N]`` -> ``[B, N, P, P, c_take]``. ROI ``n`` of image ``b``
+    reads copy ``src[b, n]`` (integer ``[B, N]`` in ``[0, S)``; MRRP:
+    ``branch * B + b`` of the branch-major concat), or copy ``b`` without
+    ``src`` (then S = B). The output keeps (ph, pw, c) innermost so fc1
+    reads a chunk as ``[B*N, P*P*c_take]`` with no copy. On the card
+    ``src``'s range is checked by a device-side assert."""
     global LAUNCHES
-    _check(feat, rois, gate, c_base, c_take)
+    _check(feat, rois, gate, c_base, c_take, src)
     if feat.device.type == "cpu":
-        return roi_pool_gated_plain(feat, rois, gate, c_base, c_take, output_size, spatial_scale)
+        return roi_pool_gated_plain(feat, rois, gate, c_base, c_take, output_size, spatial_scale,
+                                    src=src)
     if feat.device.type != "cuda":
         raise ValueError(f"roi_pool_gated runs on CPU or CUDA tensors, not {feat.device}")
     if feat.dtype not in _DTYPE_SUFFIX:
         raise TypeError(f"roi_pool_gated kernel takes bfloat16 or float32, not {feat.dtype}")
     if not feat.is_contiguous() or feat.data_ptr() % 16:
         raise ValueError("feat must be a contiguous, 16-byte aligned NHWC tensor")
-    b, h, w, c = feat.shape
+    s_copies, h, w, c = feat.shape
     if c % 2 or c_base % 2 or c_take % 2:
         raise ValueError("C, c_base and c_take must be even (two channels per thread)")
-    n = rois.shape[1]
+    b, n = rois.shape[:2]
     region = round_region(rois, spatial_scale).contiguous()
+    src32 = None if src is None else _src32(src, s_copies)
     g = gate.to(feat.dtype).contiguous()
     out = torch.empty((b, n, output_size, output_size, c_take), dtype=feat.dtype, device=feat.device)
     neg_floor = float(torch.tensor(NEG_INF, dtype=feat.dtype))
     fn = _kernel("roi_pool_gated.cu", "wsovod_roi_pool_gated", feat.dtype,
-                 [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [ctypes.c_float, ctypes.c_void_p])
-    # region and g are freed when this returns, while the kernel may still
-    # run: the caching allocator reuses their memory only in stream order
+                 [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 + [ctypes.c_float, ctypes.c_void_p])
+    # region, src32 and g are freed when this returns, while the kernel may
+    # still run: the caching allocator reuses their memory only in stream order
     with torch.cuda.device(feat.device):
         stream = torch.cuda.current_stream(feat.device).cuda_stream
-        rc = fn(feat.data_ptr(), region.data_ptr(), g.data_ptr(), out.data_ptr(),
+        rc = fn(feat.data_ptr(), region.data_ptr(), _ptr(src32), g.data_ptr(), out.data_ptr(),
                 b, h, w, c, n, int(c_base), int(c_take), int(output_size), neg_floor, stream)
     if rc != 0:
         raise RuntimeError(f"roi_pool_gated kernel launch failed: cudaError {rc}")
@@ -203,24 +256,28 @@ def roi_pool_gated_bwd_plain(
     need_feat: bool = True,
     need_gate: bool = True,
     max_elems: int = 1 << 27,
+    src: Optional[torch.Tensor] = None,
 ) -> Tuple[Optional[torch.Tensor], Optional[torch.Tensor]]:
-    """The plain PyTorch version of ``_pool_ad_bwd``
-    (``wsovod_tpu/ops/pallas/roi_pool_fused.py:2146``): ``(g_feat [B, H, W,
-    C] in feat's dtype, zero outside the chunk, g_gate [B, N] in gate's
-    dtype)``, each ``None`` where not wanted.
+    """The plain PyTorch version of ``_pool_ad_bwd`` and, with ``src``, of
+    ``_pool_branched_bwd`` with ``loop_pool=False``
+    (``wsovod_tpu/ops/pallas/roi_pool_fused.py:2146,2240``): ``(g_feat [S,
+    H, W, C] in feat's dtype, zero outside the chunk and on copies no ROI
+    reads, g_gate [B, N] in gate's dtype)``, each ``None`` where not wanted.
 
     ``g_gate`` follows the reference's formula: ``sum(g * out)`` over the
     ROI's bins and channels in float32, divided by the gate where ``|gate|
     > 1e-8``, else 0. ``g_feat`` is autograd through the plain forward's
     separable masked max (``amax`` splits a cotangent equally among tied
-    entries, as ``jnp.max``'s VJP) in float32, times the gate rounded to
-    feat's dtype as the forward used it, summed in float32 over ROI chunks
-    sized by ``max_elems`` and rounded once to feat's dtype."""
+    entries, as ``jnp.max``'s VJP) on each ROI's copy in float32, times the
+    gate rounded to feat's dtype as the forward used it, summed in float32
+    over ROI chunks sized by ``max_elems`` and rounded once to feat's
+    dtype."""
     g_gate = _gate_cotangent(g, out, gate, (2, 3, 4)) if need_gate else None
     if not need_feat:
         return None, g_gate
-    b, h_lim, w_lim, _ = feat.shape
-    n, p = rois.shape[1], output_size
+    _, h_lim, w_lim, _ = feat.shape
+    b, n = rois.shape[:2]
+    p = output_size
     reg = round_region(rois, spatial_scale)
     hlo, hhi = _bin_edges(reg[..., 1], reg[..., 3], p, h_lim)
     wlo, whi = _bin_edges(reg[..., 0], reg[..., 2], p, w_lim)
@@ -229,20 +286,21 @@ def roi_pool_gated_bwd_plain(
     neg = torch.tensor(NEG_INF, dtype=torch.float32, device=feat.device)
     gd = gate.to(feat.dtype).float()
     step = max(1, max_elems // max(1, p * h_lim * w_lim * c_take))
-    acc = torch.zeros((b, h_lim, w_lim, c_take), dtype=torch.float32, device=feat.device)
+    acc = torch.zeros(feat.shape[:3] + (c_take,), dtype=torch.float32, device=feat.device)
+    fs, last = None, None
     for i in range(b):
-        fi = feat[i, ..., c_base : c_base + c_take].float()
-        for s in range(0, n, step):
-            e = min(n, s + step)
-            row_in = (hidx >= hlo[i, s:e, :, None]) & (hidx < hhi[i, s:e, :, None])
-            col_in = (widx >= wlo[i, s:e, :, None]) & (widx < whi[i, s:e, :, None])
-            leaf = fi.detach().requires_grad_(True)
+        for s, sel in _roi_groups(src, i, n, step):
+            if s != last:
+                fs, last = feat[s, ..., c_base : c_base + c_take].float(), s
+            row_in = (hidx >= hlo[i, sel, :, None]) & (hidx < hhi[i, sel, :, None])
+            col_in = (widx >= wlo[i, sel, :, None]) & (widx < whi[i, sel, :, None])
+            leaf = fs.detach().requires_grad_(True)
             with torch.enable_grad():
                 pooled = _masked_max(leaf, row_in, col_in, neg)
                 pooled = torch.where(pooled <= neg, torch.zeros_like(pooled), pooled)
-                (grad,) = torch.autograd.grad(pooled * gd[i, s:e, None, None, None], leaf,
-                                              g[i, s:e].float())
-            acc[i] += grad
+                (grad,) = torch.autograd.grad(pooled * gd[i, sel, None, None, None], leaf,
+                                              g[i, sel].float())
+            acc[s] += grad
     g_feat = torch.zeros_like(feat)
     g_feat[..., c_base : c_base + c_take] = acc.to(feat.dtype)
     return g_feat, g_gate
@@ -260,14 +318,16 @@ def roi_pool_gated_bwd(
     spatial_scale: float = 1.0,
     need_feat: bool = True,
     need_gate: bool = True,
+    src: Optional[torch.Tensor] = None,
 ) -> Tuple[Optional[torch.Tensor], Optional[torch.Tensor]]:
     """Backward of ``roi_pool_gated`` at cotangent ``g [B, N, P, P,
-    c_take]``: ``(g_feat, g_gate)`` as ``roi_pool_gated_bwd_plain``; ``out``
-    (the forward's output) is read only for ``g_gate``. On the card the
-    feature cotangent is summed with float32 atomics, so it equals the plain
-    version to float tolerance, not bit for bit."""
+    c_take]``: ``(g_feat [S, H, W, C], g_gate [B, N])`` as
+    ``roi_pool_gated_bwd_plain``; ``out`` (the forward's output) is read
+    only for ``g_gate``. On the card the feature cotangent is summed with
+    float32 atomics over every copy, so it equals the plain version to float
+    tolerance, not bit for bit."""
     global BWD_LAUNCHES
-    _check(feat, rois, gate, c_base, c_take)
+    _check(feat, rois, gate, c_base, c_take, src)
     b, n = rois.shape[:2]
     shape = (b, n, output_size, output_size, c_take)
     if tuple(g.shape) != shape or (need_gate and (out is None or tuple(out.shape) != shape)):
@@ -275,38 +335,35 @@ def roi_pool_gated_bwd(
                          f"{tuple(g.shape)}, {None if out is None else tuple(out.shape)}")
     if feat.device.type == "cpu":
         return roi_pool_gated_bwd_plain(feat, rois, gate, out, g, c_base, c_take, output_size,
-                                        spatial_scale, need_feat, need_gate)
+                                        spatial_scale, need_feat, need_gate, src=src)
     if feat.device.type != "cuda":
         raise ValueError(f"roi_pool_gated_bwd runs on CPU or CUDA tensors, not {feat.device}")
     if feat.dtype not in _DTYPE_SUFFIX:
         raise TypeError(f"roi_pool_gated_bwd kernel takes bfloat16 or float32, not {feat.dtype}")
     if not feat.is_contiguous() or feat.data_ptr() % 16:
         raise ValueError("feat must be a contiguous, 16-byte aligned NHWC tensor")
-    _, h, w, c = feat.shape
+    s_copies, h, w, c = feat.shape
     if c % 2 or c_base % 2 or c_take % 2:
         raise ValueError("C, c_base and c_take must be even (two channels per thread)")
     region = round_region(rois, spatial_scale).contiguous()
+    src32 = None if src is None else _src32(src, s_copies)
     gate_dt = gate.to(feat.dtype).contiguous()
     gate_f32 = gate.float().contiguous()
     g = g.to(feat.dtype).contiguous()
     out = out.to(feat.dtype).contiguous() if need_gate else None
-    scratch = (torch.zeros((b, h, w, c_take), dtype=torch.float32, device=feat.device)
+    scratch = (torch.zeros((s_copies, h, w, c_take), dtype=torch.float32, device=feat.device)
                if need_feat else None)
     g_gate = torch.empty((b, n), dtype=torch.float32, device=feat.device) if need_gate else None
-
-    def ptr(t):
-        return None if t is None else t.data_ptr()
-
     neg_floor = float(torch.tensor(NEG_INF, dtype=feat.dtype))
     fn = _kernel("roi_pool_gated_bwd.cu", "wsovod_roi_pool_gated_bwd", feat.dtype,
-                 [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8 + [ctypes.c_float, ctypes.c_void_p])
+                 [ctypes.c_void_p] * 9 + [ctypes.c_int] * 8 + [ctypes.c_float, ctypes.c_void_p])
     # the temporaries are freed when this returns, while the kernel may still
     # run: the caching allocator reuses their memory only in stream order
     with torch.cuda.device(feat.device):
         stream = torch.cuda.current_stream(feat.device).cuda_stream
-        rc = fn(feat.data_ptr(), region.data_ptr(), gate_dt.data_ptr(), gate_f32.data_ptr(),
-                g.data_ptr(), ptr(out), ptr(scratch), ptr(g_gate), b, h, w, c, n, int(c_base),
-                int(c_take), int(output_size), neg_floor, stream)
+        rc = fn(feat.data_ptr(), region.data_ptr(), _ptr(src32), gate_dt.data_ptr(),
+                gate_f32.data_ptr(), g.data_ptr(), _ptr(out), _ptr(scratch), _ptr(g_gate), b, h, w,
+                c, n, int(c_base), int(c_take), int(output_size), neg_floor, stream)
     if rc != 0:
         raise RuntimeError(f"roi_pool_gated_bwd kernel launch failed: cudaError {rc}")
     BWD_LAUNCHES += 1
@@ -318,28 +375,29 @@ def roi_pool_gated_bwd(
 
 
 class RoIPoolGatedFunction(torch.autograd.Function):
-    """``roi_pool_gated`` under autograd (``roi_pool_fused_ad``): the forward
-    launches the pool kernel, the backward ``roi_pool_gated_bwd``. It saves
-    nothing when neither ``feat`` nor ``gate`` needs a gradient (a frozen
-    backbone and a validity gate, every shipped config), and the forward's
-    output only when the gate needs one."""
+    """``roi_pool_gated`` under autograd (``roi_pool_fused_ad``, and with
+    ``src`` ``roi_pool_fused_branched_ad`` with ``loop_pool=False``): the
+    forward launches the pool kernel, the backward ``roi_pool_gated_bwd``.
+    It saves nothing when neither ``feat`` nor ``gate`` needs a gradient (a
+    frozen backbone and a validity gate, every shipped config), and the
+    forward's output only when the gate needs one."""
 
     @staticmethod
-    def forward(ctx, feat, rois, gate, c_base, c_take, output_size, spatial_scale):
-        out = roi_pool_gated(feat, rois, gate, c_base, c_take, output_size, spatial_scale)
+    def forward(ctx, feat, rois, gate, c_base, c_take, output_size, spatial_scale, src=None):
+        out = roi_pool_gated(feat, rois, gate, c_base, c_take, output_size, spatial_scale, src)
         need_feat, need_gate = ctx.needs_input_grad[0], ctx.needs_input_grad[2]
         if need_feat or need_gate:
-            ctx.save_for_backward(feat, rois, gate, out if need_gate else None)
+            ctx.save_for_backward(feat, rois, gate, src, out if need_gate else None)
             ctx.args = (c_base, c_take, output_size, spatial_scale)
         return out
 
     @staticmethod
     def backward(ctx, g):
-        feat, rois, gate, out = ctx.saved_tensors
+        feat, rois, gate, src, out = ctx.saved_tensors
         g_feat, g_gate = roi_pool_gated_bwd(feat, rois, gate, out, g, *ctx.args,
                                             need_feat=ctx.needs_input_grad[0],
-                                            need_gate=ctx.needs_input_grad[2])
-        return g_feat, None, g_gate, None, None, None, None
+                                            need_gate=ctx.needs_input_grad[2], src=src)
+        return g_feat, None, g_gate, None, None, None, None, None
 
 
 def _masked_max(f: torch.Tensor, row_in: torch.Tensor, col_in: torch.Tensor,
@@ -453,14 +511,11 @@ def roi_loop_pool_gated_plain(
     step = max(1, max_elems // max(1, p * h_lim * w_lim * c_take))
     out = torch.empty((rows, b, n, p, p, c_take), dtype=feat.dtype, device=feat.device)
     for i in range(b):
-        for s in torch.unique(src[i]).tolist():
-            idx = torch.nonzero(src[i] == s).squeeze(1)
-            for lo in range(0, idx.numel(), step):
-                sel = idx[lo : lo + step]
-                pooled = _loop_rows(f[s], geo[i, sel], rows, p)
-                gi = g[i, sel, None, None, None]
-                for r, pr in enumerate(pooled):
-                    out[r, i, sel] = pr * gi
+        for s, sel in _roi_groups(src, i, n, step):
+            pooled = _loop_rows(f[s], geo[i, sel], rows, p)
+            gi = g[i, sel, None, None, None]
+            for r, pr in enumerate(pooled):
+                out[r, i, sel] = pr * gi
     return out
 
 
@@ -468,21 +523,17 @@ def _check_loop(feat, rois, gate, src, c_base, c_take, rows):
     if feat.dim() != 4:
         raise ValueError(f"feat must be [S, H, W, C], got {tuple(feat.shape)}")
     b, n = rois.shape[:2]
-    if rois.shape != (b, n, 4) or gate.shape != (b, n) or src.shape != (b, n):
-        raise ValueError(f"rois [B, N, 4], gate and src [B, N]: got {tuple(rois.shape)}, "
-                         f"{tuple(gate.shape)}, {tuple(src.shape)}")
-    if src.dtype not in (torch.int32, torch.int64):
-        raise TypeError(f"src must be an integer tensor, not {src.dtype}")
+    if rois.shape != (b, n, 4) or gate.shape != (b, n):
+        raise ValueError(f"rois [B, N, 4] and gate [B, N]: got {tuple(rois.shape)}, "
+                         f"{tuple(gate.shape)}")
     if not (0 <= c_base and c_take > 0 and c_base + c_take <= feat.shape[3]):
         raise ValueError(f"channel chunk [{c_base}, {c_base + c_take}) outside C={feat.shape[3]}")
     if rows not in (1, 2, 3):
         raise ValueError(f"rows must be 1, 2 or 3, not {rows}")
-    if not (rois.device == gate.device == src.device == feat.device):
-        raise ValueError("feat, rois, gate and src must be on one device")
-    if feat.device.type == "cpu":
-        if src.numel() and not (0 <= int(src.min()) and int(src.max()) < feat.shape[0]):
-            raise ValueError(f"src must lie in [0, {feat.shape[0]})")
-    elif feat.device.type != "cuda":
+    if not (rois.device == gate.device == feat.device):
+        raise ValueError("feat, rois and gate must be on one device")
+    _check_src(feat, src, b, n)
+    if feat.device.type not in ("cpu", "cuda"):
         raise ValueError(f"the loop pool runs on CPU or CUDA tensors, not {feat.device}")
 
 
@@ -591,24 +642,23 @@ def roi_loop_pool_gated_bwd_plain(
     if not need_feat:
         return None, g_gate
     _, h_lim, w_lim, _ = feat.shape
-    b = rois.shape[0]
+    b, n = rois.shape[:2]
     p = output_size
     geo = loop_geometry(rois, spatial_scale, h_lim, w_lim, context_ratio)
     gd = gate.to(feat.dtype).float()
     step = max(1, max_elems // max(1, p * h_lim * w_lim * c_take))
     acc = torch.zeros(feat.shape[:3] + (c_take,), dtype=torch.float32, device=feat.device)
+    fs, last = None, None
     for i in range(b):
-        for s in torch.unique(src[i]).tolist():
-            idx = torch.nonzero(src[i] == s).squeeze(1)
-            fs = feat[s, ..., c_base : c_base + c_take].float()
-            for lo in range(0, idx.numel(), step):
-                sel = idx[lo : lo + step]
-                leaf = fs.detach().requires_grad_(True)
-                with torch.enable_grad():
-                    pooled = torch.stack(_loop_rows(leaf, geo[i, sel], rows, p))
-                    (grad,) = torch.autograd.grad(pooled * gd[i, sel, None, None, None], leaf,
-                                                  g[:, i, sel].float())
-                acc[s] += grad
+        for s, sel in _roi_groups(src, i, n, step):
+            if s != last:
+                fs, last = feat[s, ..., c_base : c_base + c_take].float(), s
+            leaf = fs.detach().requires_grad_(True)
+            with torch.enable_grad():
+                pooled = torch.stack(_loop_rows(leaf, geo[i, sel], rows, p))
+                (grad,) = torch.autograd.grad(pooled * gd[i, sel, None, None, None], leaf,
+                                              g[:, i, sel].float())
+            acc[s] += grad
     g_feat = torch.zeros_like(feat)
     g_feat[..., c_base : c_base + c_take] = acc.to(feat.dtype)
     return g_feat, g_gate
@@ -659,10 +709,6 @@ def roi_loop_pool_gated_bwd(
     scratch = (torch.zeros((s_copies, h, w, c_take), dtype=torch.float32, device=feat.device)
                if need_feat else None)
     g_gate = torch.empty((b, n), dtype=torch.float32, device=feat.device) if need_gate else None
-
-    def ptr(t):
-        return None if t is None else t.data_ptr()
-
     neg_floor = float(torch.tensor(NEG_INF, dtype=feat.dtype))
     fn = _kernel("roi_loop_pool_gated_bwd.cu", "wsovod_roi_loop_pool_gated_bwd", feat.dtype,
                  [ctypes.c_void_p] * 9 + [ctypes.c_int] * 9 + [ctypes.c_float, ctypes.c_void_p])
@@ -671,8 +717,8 @@ def roi_loop_pool_gated_bwd(
     with torch.cuda.device(feat.device):
         stream = torch.cuda.current_stream(feat.device).cuda_stream
         rc = fn(feat.data_ptr(), geo.data_ptr(), src32.data_ptr(), gate_dt.data_ptr(),
-                gate_f32.data_ptr(), g.data_ptr(), ptr(out), ptr(scratch), ptr(g_gate), b, h, w, c,
-                n, int(c_base), int(c_take), int(output_size), int(rows), neg_floor, stream)
+                gate_f32.data_ptr(), g.data_ptr(), _ptr(out), _ptr(scratch), _ptr(g_gate), b, h,
+                w, c, n, int(c_base), int(c_take), int(output_size), int(rows), neg_floor, stream)
     if rc != 0:
         raise RuntimeError(f"roi_loop_pool_gated_bwd kernel launch failed: cudaError {rc}")
     LOOP_BWD_LAUNCHES += 1

@@ -1,11 +1,12 @@
 """Optimizer, LR schedule and worker scaling (counterpart of
 ``wsovod_tpu/solver/build.py``, which builds them with optax).
 
-* ``param_labels``: frozen / backbone / bias / default per parameter, by
-  backbone stage and ``FREEZE_AT``. The frozen-BN statistics are buffers
-  here, and the frozen stages have ``requires_grad`` off
-  (``WSRResNet.freeze``), so "frozen" is exactly the parameters without a
-  gradient.
+* ``param_labels``: frozen / backbone / bias / default per parameter. The
+  frozen-BN statistics are buffers here, and the stages up to ``FREEZE_AT``
+  have ``requires_grad`` off (``WSRResNet.freeze``, ``VGG16.freeze``, by
+  the JAX package's stage rule, ``wsovod_tpu/solver/build.py:22-31``), so
+  "frozen" is exactly the backbone parameters without a gradient; every
+  other backbone parameter, VGG's conv biases too, is "backbone".
 * ``make_lr_schedule``: WarmupMultiStep as a function of the optimizer
   update count.
 * ``build_optimizer``: ``torch.optim.SGD`` with one parameter group per
@@ -30,23 +31,15 @@ import torch
 from torch import nn
 
 
-def _backbone_stage(name: str) -> int:
-    """Freeze stage of a backbone parameter (d2: 1 = stem, 2..5 = res2..5)."""
-    if name.startswith("backbone.stem."):
-        return 1
-    for s in range(2, 6):
-        if name.startswith(f"backbone.res{s}."):
-            return s
-    return 5
-
-
-def param_labels(model: nn.Module, freeze_at: int) -> Dict[str, str]:
+def param_labels(model: nn.Module) -> Dict[str, str]:
     """``name -> "frozen" | "backbone" | "bias" | "default"`` for every
-    parameter, by the JAX package's rules."""
+    parameter, by the JAX package's rules: a backbone parameter is "frozen"
+    when its stage is frozen (``requires_grad`` off, set by the backbone's
+    ``freeze``), else "backbone", a bias too."""
     labels = {}
-    for name, _ in model.named_parameters():
+    for name, p in model.named_parameters():
         if name.startswith("backbone."):
-            labels[name] = "frozen" if _backbone_stage(name) <= freeze_at else "backbone"
+            labels[name] = "backbone" if p.requires_grad else "frozen"
         elif name.rsplit(".", 1)[-1] == "bias":
             labels[name] = "bias"
         else:
@@ -87,7 +80,7 @@ def build_optimizer(cfg, model: nn.Module) -> torch.optim.SGD:
         raise NotImplementedError(f"SOLVER.OPTIMIZER={s.OPTIMIZER!r} is not ported")
     wd = s.WEIGHT_DECAY
     wd_bias = wd if s.WEIGHT_DECAY_BIAS is None else s.WEIGHT_DECAY_BIAS
-    labels = param_labels(model, cfg.MODEL.BACKBONE.FREEZE_AT)
+    labels = param_labels(model)
     settings = {"default": (1.0, wd), "bias": (s.BIAS_LR_FACTOR, wd_bias),
                 "backbone": (s.BACKBONE_MULTIPLIER, wd)}
     groups = []

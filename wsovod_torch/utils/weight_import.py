@@ -2,7 +2,8 @@
 ``wsovod_tpu/utils/weight_import.py::import_wsovod_model``).
 
 Names and layouts are the reference torch modules' (``backbone.res2.0.conv1.
-weight``, ``roi_heads.box_head.fc1.weight`` as ``[out, c*h*w]``,
+weight``, ``backbone.plain1.conv1.bias`` of VGG16,
+``roi_heads.box_head.fc1.weight`` as ``[out, c*h*w]``,
 ``roi_heads.box_refinery.0.cls.projection.0.weight``,
 ``data_aware_head.datasets_feat.weight``,
 ``proposal_generator.rpn_head.conv.weight``,
@@ -31,6 +32,8 @@ def _fc(k: np.ndarray) -> np.ndarray:
 
 def _convnorm(out: Dict[str, np.ndarray], prefix: str, p: Mapping[str, Any]) -> None:
     out[prefix + ".weight"] = _conv(p["kernel"])
+    if "bias" in p:  # VGG's convs
+        out[prefix + ".bias"] = p["bias"]
     bn = p.get("FrozenBatchNorm_0")
     if bn is not None:
         out[prefix + ".norm.weight"] = bn["scale"]
@@ -40,12 +43,18 @@ def _convnorm(out: Dict[str, np.ndarray], prefix: str, p: Mapping[str, Any]) -> 
 
 
 def _backbone(out, tree: Mapping[str, Any], prefix: str) -> None:
-    for i in (1, 2, 3):
-        _convnorm(out, f"{prefix}stem.conv{i}", tree["stem"][f"conv{i}"])
+    """A WSR ResNet tree (``stem``, ``res{s}_{b}``) or a VGG16 tree
+    (``plain{k}``, named ``plain{k}.conv{i}`` in torch)."""
+    if "stem" in tree:
+        for i in (1, 2, 3):
+            _convnorm(out, f"{prefix}stem.conv{i}", tree["stem"][f"conv{i}"])
     for key in sorted(k for k in tree if k.startswith("res")):
         stage, block = key.split("_")
         for conv, p in tree[key].items():
             _convnorm(out, f"{prefix}{stage}.{block}.{conv}", p)
+    for key in sorted(k for k in tree if k.startswith("plain")):
+        for conv, p in tree[key].items():
+            _convnorm(out, f"{prefix}{key}.{conv}", p)
 
 
 def fc1_weight_from_jax(kernel) -> np.ndarray:
@@ -61,8 +70,8 @@ def _tensors(out: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
 
 
 def backbone_state_dict_from_jax(tree: Mapping[str, Any], prefix: str = "") -> Dict[str, torch.Tensor]:
-    """A ``WSRResNet`` parameter tree -> its ``state_dict`` (names under
-    ``prefix``)."""
+    """A ``WSRResNet`` or ``VGG16`` parameter tree -> its ``state_dict``
+    (names under ``prefix``)."""
     out: Dict[str, np.ndarray] = {}
     _backbone(out, tree, prefix)
     return _tensors(out)

@@ -6,7 +6,7 @@
 Phases, in order; any failure exits nonzero before the last line is printed:
 
 1. Device and build: the card's name and power limit (``nvidia-smi``), TF32
-   off for matmuls and convolutions, the four CUDA kernels built from
+   off for matmuls and convolutions, the six CUDA kernels built from
    ``wsovod_torch/kernels/csrc`` with ``nvcc`` for ``sm_90a`` (one ``nvcc``
    per source, started together).
 2. The gated ROIPool kernel against its plain PyTorch version at the plain
@@ -21,22 +21,33 @@ Phases, in order; any failure exits nonzero before the last line is printed:
    gated ROIPool routed by branch (a per-ROI source copy) against its plain
    version at the MRRP VGG16 slice's shapes (plain5's three copies ``[6,
    85, 131, 512]``, 5024 ROIs per image on seeded branches), bfloat16 and
-   float32, bit for bit; both times.
+   float32, bit for bit; both times. Then the gated ROIAlign kernel against
+   its plain version at the ``align`` slice's shapes (``[2, 86, 132,
+   2048]``) and, routed by branch, at the ``mrrp-align`` slice's (``[6, 86,
+   132, 2048]``): the same box mix plus zero-area and gate-0 rows, 2 samples
+   per bin axis, bfloat16 and float32, exact and windowed (``pallas_approx``),
+   one chunk at full N and every chunk at a reduced N, to float tolerance
+   (float32 sums in another order); all times.
 4. The plain slice: ``build_model`` on ``configs/COCO-Detection/
    WSOVOD_WSR_50_DC5_1x.yaml``; 5. the MRRP slice, the same on
    ``WSOVOD_MRRP_WSR_50_DC5_1x.yaml`` (three branches at test); then the
    ``vgg`` and ``mrrp-vgg`` slices on ``WSOVOD_V_16_DC5_1x.yaml`` and
    ``WSOVOD_MRRP_V_16_DC5_1x.yaml`` (``RPN.IN_FEATURES`` set to
    ``["plain5"]``, which the YAMLs leave at the base's ``res5``; plain5 is
-   one 512-channel chunk, ``[B, 85, 131, 512]`` per branch). Each with TTA
+   one 512-channel chunk, ``[B, 85, 131, 512]`` per branch); then the
+   ``align`` and ``mrrp-align`` slices, the two WSR-50-DC5 YAMLs with
+   ``POOLER_TYPE ROIAlignV2`` (the config tree's default pooler; the MRRP
+   align routed by branch), and ``align-approx``, the plain one with
+   ``TPU.ROI_ALIGN_KERNEL pallas_approx`` (the windowed align). Each with TTA
    off, bf16 compute, seeded random parameters, B=2 synthetic 688x1056
    images with 4000 SAM proposals each and an 80x512 class-embedding matrix,
    through ``inference_on_dataset``. Checks: the launch counts, set to 0
    just before the run and read just after, rose by one per channel chunk
    and batch for the slice's kernel (the gated ROIPool, routed by branch
-   under the MRRP VGG16) and stayed 0 for the other; detections are finite
-   and every image has some; the chunks the model pooled on the first batch
-   equal the plain version called directly on the same card tensors; under
+   under the MRRP VGG16; the ROIAlign) and stayed 0 for the others;
+   detections are finite and every image has some; the chunks the model
+   pooled on the first batch equal the plain version called directly on the
+   same card tensors (bit for bit; the align to float tolerance); under
    MRRP the RPN's proposals come from more than one branch. Prints
    images/s, the per-stage wall times, peak memory, the RPN input feature's
    standard deviation per copy, and the device's busy share and top device
@@ -56,6 +67,8 @@ Phases, in order; any failure exits nonzero before the last line is printed:
    ROIs per image; its time, the plain version's and the bound. Then the
    gated ROIPool's backward routed by branch, the same way at the MRRP
    VGG16 training shape (plain5's three copies ``[12, 99, 151, 512]``).
+   Then the ROIAlign's backward the same way at the training shape and,
+   routed, at the MRRP training shape.
 8. The ``train-plain`` slice: ``WSOVODTrainer`` on ``WSOVOD_WSR_50_DC5_1x.yaml``
    at full width (``FREEZE_AT`` 5 as shipped, BBOX_REFINE off for want of a
    SAM checkpoint, the recipe scaled to one card: ``BASE_LR`` / 4,
@@ -90,10 +103,16 @@ Phases, in order; any failure exits nonzero before the last line is printed:
    the backward runs through the whole backbone and the routed backward
    launches once per iteration, its first launch re-run against the plain
    version.
-12. The card line, one JSON line of kernel records (with each kernel's bound
+12. The ``train-align`` and ``train-align-res5`` slices: the same on
+   ``WSOVOD_WSR_50_DC5_1x.yaml`` with ``POOLER_TYPE ROIAlignV2``,
+   ``FREEZE_AT`` 5 and 4, 4 iterations each: the align launched 4 times
+   per iteration, under ``FREEZE_AT`` 4 its backward too, the model's first
+   backward launch re-run on a subset of its ROIs against the plain version.
+13. The card line, one JSON line of kernel records (with each kernel's bound
    on this card computed from this run's inputs; the routed pool and its
    backward, the same kernels with a source copy per ROI, have records of
-   their own), and the result line.
+   their own, as has the routed align; the windowed align's times ride in
+   the align's record), and the result line.
 
 It imports no JAX and nothing of ``wsovod_tpu``.
 """
@@ -134,6 +153,10 @@ LOOP_BWD_PLAIN_N = 1024  # ROIs per image where the loop backward meets its plai
 VGG_FEAT = (B, 85, 131, 512)
 VGG_TRAIN_FEAT = (TB, 99, 151, 512)
 VGG_ITERS = 4  # iterations of each VGG train slice
+ALIGN = "ROIAlignV2"  # the config tree's default pooler, set on the WSR-50-DC5 YAMLs
+ALIGN_S = 2  # ROIAlign samples per bin axis: POOLER_SAMPLING_RATIO 0 means 2
+ALIGN_ITERS = 4  # iterations of each ROIAlignV2 train slice
+ALIGN_BWD_PLAIN_N = 1024  # ROIs per image where the align backward meets its plain version
 PROFILE_DIR = os.path.join(REPO, "profiles")  # git-ignored
 # NVIDIA H100 SXM data sheet: HBM rate, and the float32 rate outside the
 # tensor cores (the pool kernels compare in float32)
@@ -241,7 +264,8 @@ def bound(pixels: int, out_elems: int, in_bytes: int, out_bytes: int):
     """Least time (ms) on the card for a pool call, and what sets it: the
     bytes it must move (each input read once, each output written once) over
     HBM's rate, against its operations (one compare per bin pixel and
-    channel, one gate multiply per output) over the float32 rate."""
+    channel, or the align's multiply-adds, one gate multiply per output)
+    over the float32 rate."""
     t_bytes = (in_bytes + out_bytes) / PEAK_BYTES_PER_S * 1e3
     t_ops = (pixels + out_elems) / PEAK_F32_OPS_PER_S * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
@@ -401,6 +425,182 @@ def phase_routed_kernel(torch, dev, rp):
             "bound_ms": bound_ms, "bound_by": bound_by}
 
 
+def align_terms(ra, rois_t, h, w):
+    """Corner terms per channel that a call's ROIAlign needs, summed over
+    its ROIs: per ROI, (sample rows' nonzero corner weights) x (sample
+    columns'), the nonzero products of the sample metadata; a term is a
+    multiply and an add per channel."""
+    _, wt = ra.sample_meta(rois_t, 0.125, 7, ALIGN_S, True, h, w)
+    nz = (wt != 0).sum(dim=(-2, -1)).long()  # [..., 2]: nonzero weights along y and x
+    return int((nz[..., 0] * nz[..., 1]).sum())
+
+
+def align_inputs(rng, b, w, h):
+    """``pool_inputs`` plus a zero-area row and a valid row of gate 0."""
+    rois, gate = pool_inputs(rng, b, w, h)
+    rois[:, 5] = [300, 200, 300, 200]  # zero area
+    rois[:, 6] = [100, 100, 500, 400]
+    gate[:, 6] = 0.0  # a valid box with gate 0
+    return rois, gate
+
+
+def phase_align_kernel(torch, dev, ra):
+    """The gated ROIAlign kernel vs its plain version at the ``align``
+    slice's shapes (res5 ``[2, 86, 132, 2048]``) and, routed by branch, at
+    the ``mrrp-align`` slice's (``[6, 86, 132, 2048]``): 5024 ROIs per image
+    from the box mix with overhanging, degenerate, zero-area, invalid and
+    gate-0 rows, ``sampling_ratio`` 2, bfloat16 and float32, exact and
+    windowed (``TPU.ROI_ALIGN_KERNEL = "pallas_approx"``): one chunk at full
+    N, every chunk at a reduced N. Tolerance: float32 sums in another order,
+    |kernel - plain| <= rtol |plain| + 1e-5 max |plain|, rtol 1e-5 in
+    float32 and one bfloat16 step (2**-7) in bfloat16. Returns the records
+    of the unrouted and the routed kernel."""
+    rng = np.random.RandomState(8)
+    rois, gate = align_inputs(rng, B, W, H)
+    branch = rng.randint(0, N_BRANCH, (B, N_ROIS))
+    branch[:, :N_BRANCH] = np.arange(N_BRANCH)
+    src = (branch * B + np.arange(B)[:, None]).astype(np.int32)
+    rois_t, gate_t, src_t = (torch.from_numpy(a).to(dev) for a in (rois, gate, src))
+    g = torch.Generator(device=dev).manual_seed(8)
+    feat32 = torch.randn((N_BRANCH * B,) + FEAT[1:], generator=g, device=dev)
+    n = REDUCED_N
+    records = {}
+    for name, copies, s_t in (("roi_align_gated", B, None), ("roi_align_gated_routed", N_BRANCH * B,
+                                                              src_t)):
+        max_err, times = 0.0, {}
+        sub = [rois_t[:, :n].contiguous(), gate_t[:, :n].contiguous(),
+               None if s_t is None else s_t[:, :n].contiguous()]
+        for dtype, rtol in ((torch.bfloat16, 2.0 ** -7), (torch.float32, 1e-5)):
+            feat = feat32[:copies].to(dtype).contiguous()
+            dn = str(dtype)[6:]
+            for window in (None, ra.WINDOW):
+                what = f"{name}, {dn}, {'windowed' if window else 'exact'}"
+                checks = [(C_TAKE, rois_t, gate_t, s_t, "full N")] + [
+                    (c, *sub, f"{n} ROIs") for c in range(0, FEAT[3], C_TAKE)]
+                for c_base, r_, g_, sr, where in checks:
+                    got = ra.roi_align_gated(feat, r_, g_, c_base, C_TAKE, 7, 0.125, ALIGN_S,
+                                             src=sr, window=window)
+                    want, t = timed(lambda: ra.roi_align_gated_plain(
+                        feat, r_, g_, c_base, C_TAKE, 7, 0.125, ALIGN_S, src=sr, window=window,
+                        max_elems=1 << 27))
+                    ok, err = align_near(got, want, rtol)
+                    max_err = max(max_err, err)
+                    if not ok:
+                        raise AssertionError(f"{what} != plain ({where}, c_base {c_base}): max "
+                                             f"|err| {err}")
+                    if dtype == torch.bfloat16 and where == "full N":
+                        times["window_plain_ms" if window else "plain_ms"] = t
+                if dtype == torch.bfloat16:
+                    times["window_ms" if window else "ms"] = cuda_ms(lambda: ra.roi_align_gated(
+                        feat, rois_t, gate_t, C_TAKE, C_TAKE, 7, 0.125, ALIGN_S, src=s_t,
+                        window=window), 20)
+                log(f"{what} ~= plain (rtol {rtol:g}): {N_ROIS} ROIs on one chunk, {n} ROIs on "
+                    f"chunks {list(range(0, FEAT[3], C_TAKE))}")
+        # least time: read the feature chunks of the copies some ROI reads,
+        # rois, gate (and src) once, write the output once; a multiply and an
+        # add per nonzero corner term and channel, a gate multiply per output
+        live = copies if s_t is None else int(torch.unique(s_t).numel())
+        out_elems = B * N_ROIS * 49 * C_TAKE
+        in_bytes = (live * FEAT[1] * FEAT[2] * C_TAKE * 2 + rois_t.numel() * 4 + gate_t.numel() * 4
+                    + (0 if s_t is None else s_t.numel() * 4))
+        terms = align_terms(ra, rois_t, FEAT[1], FEAT[2])
+        ops = 2 * terms * C_TAKE + 2 * out_elems
+        bound_ms, bound_by = bound(ops - out_elems, out_elems, in_bytes, out_elems * 2)
+        log(f"{name} bf16 {[copies] + list(FEAT[1:])} x {N_ROIS} ROIs, one 512-channel chunk, "
+            f"s={ALIGN_S}: kernel {times['ms']:.3f} ms (windowed {times['window_ms']:.3f} ms), "
+            f"plain {times['plain_ms']:.3f} ms (windowed {times['window_plain_ms']:.3f} ms), bound "
+            f"{bound_ms:.3f} ms ({bound_by}: {(in_bytes + out_elems * 2) / 1e6:.1f} MB, "
+            f"{ops / 1e9:.3f} G operations)")
+        records[name] = {"max_abs_err": max_err, "bound_ms": bound_ms, "bound_by": bound_by,
+                         **times}
+    return records
+
+
+def phase_align_bwd_kernel(torch, dev, ra):
+    """The gated ROIAlign's backward kernel vs its plain version at the
+    training shape (res5 ``[4, 100, 152, 2048]`` of B=4 800x1216 images;
+    routed by branch at the MRRP training shape ``[12, 100, 152, 2048]``),
+    5024 ROIs per image from the box mix with overhanging, degenerate,
+    zero-area, invalid and gate-0 rows, bfloat16 and float32, both
+    cotangents, one chunk: timed at full N, compared on the first
+    ``ALIGN_BWD_PLAIN_N`` ROIs per image. Tolerance as the ROIPool
+    backward's: float32 atomics in a varying order, |kernel - plain| <=
+    rtol |plain| + 1e-5 max |plain|, rtol 1e-5 or one bfloat16 step; the
+    gate cotangent rtol 1e-4."""
+    rng = np.random.RandomState(9)
+    rois, gate = align_inputs(rng, TB, TW, TH)
+    branch = rng.randint(0, N_BRANCH, (TB, N_ROIS))
+    branch[:, :N_BRANCH] = np.arange(N_BRANCH)
+    src = (branch * TB + np.arange(TB)[:, None]).astype(np.int32)
+    rois_t, gate_t, src_t = (torch.from_numpy(a).to(dev) for a in (rois, gate, src))
+    g = torch.Generator(device=dev).manual_seed(9)
+    base = torch.randn(TRAIN_FEAT_MRRP, generator=g, device=dev)
+    n = ALIGN_BWD_PLAIN_N
+    max_err, times = 0.0, {}
+    for routed in (False, True):
+        copies, s_t = (TRAIN_FEAT_MRRP[0], src_t) if routed else (TB, None)
+        r_n, g_n = rois_t[:, :n].contiguous(), gate_t[:, :n].contiguous()
+        s_n = None if s_t is None else s_t[:, :n].contiguous()
+        for dtype, rtol in ((torch.bfloat16, 2.0 ** -7), (torch.float32, 1e-5)):
+            feat = base[:copies].to(dtype).contiguous()
+            cot = torch.randn((TB, N_ROIS, 7, 7, C_TAKE), generator=g, device=dev, dtype=dtype)
+            what = f"roi_align_gated_bwd{' routed' if routed else ''}, {str(dtype)[6:]}"
+            if dtype == torch.bfloat16:  # the training path's call: the feature cotangent only
+                times["routed_ms" if routed else "ms"] = cuda_ms(lambda: ra.roi_align_gated_bwd(
+                    feat, rois_t, gate_t, None, cot, C_TAKE, C_TAKE, 7, 0.125, ALIGN_S,
+                    need_gate=False, src=s_t), 10)
+            cot_n = cot[:, :n].contiguous()
+            del cot
+            out = ra.roi_align_gated(feat, r_n, g_n, C_TAKE, C_TAKE, 7, 0.125, ALIGN_S, src=s_n)
+            got_f, got_g = ra.roi_align_gated_bwd(feat, r_n, g_n, out, cot_n, C_TAKE, C_TAKE, 7,
+                                                  0.125, ALIGN_S, src=s_n)
+            (want_f, _), t = timed(lambda: ra.roi_align_gated_bwd_plain(
+                feat, r_n, g_n, None, cot_n, C_TAKE, C_TAKE, 7, 0.125, ALIGN_S, need_gate=False,
+                src=s_n, max_elems=1 << 27))
+            _, want_g = ra.roi_align_gated_bwd_plain(feat, r_n, g_n, out, cot_n, C_TAKE, C_TAKE, 7,
+                                                     0.125, ALIGN_S, need_feat=False, src=s_n)
+            if dtype == torch.bfloat16:
+                times["routed_plain_ms" if routed else "plain_ms"] = t
+                if not routed:
+                    times["ms_at_plain_n"] = cuda_ms(lambda: ra.roi_align_gated_bwd(
+                        feat, r_n, g_n, None, cot_n, C_TAKE, C_TAKE, 7, 0.125, ALIGN_S,
+                        need_gate=False), 10)
+            ok, err = align_near(got_f, want_f, rtol)
+            max_err = max(max_err, err)
+            if not ok:
+                raise AssertionError(f"{what}: g_feat != plain, max |err| {err}")
+            if routed and not all(bool(want_f[k].any()) for k in range(copies)):
+                raise AssertionError(f"{what}: a copy got no cotangent")
+            gerr = (got_g - want_g).abs()
+            if not (gerr <= 1e-4 * want_g.abs() + 1e-4 * want_g.abs().max()).all():
+                raise AssertionError(f"{what}: g_gate != plain, max |err| {gerr.max().item()}")
+            log(f"{what} ~= plain: {n} ROIs per image, both cotangents (rtol {rtol:g}); plain "
+                f"call {t / 1e3:.3f} s")
+            del feat, cot_n, out, got_f, got_g, want_f, want_g
+            torch.cuda.empty_cache()
+    # least time of the training call at full N (unrouted): read the
+    # cotangent, rois and gate once, write the float32 scratch once; a
+    # multiply and an add per nonzero corner term and channel of the ROIs of
+    # nonzero gate, a gate multiply per cotangent element
+    h, w = TRAIN_FEAT[1], TRAIN_FEAT[2]
+    live = gate_t != 0
+    terms = align_terms(ra, rois_t[live], h, w)
+    g_elems = TB * N_ROIS * 49 * C_TAKE
+    scratch_bytes = TB * h * w * C_TAKE * 4
+    in_bytes = g_elems * 2 + rois_t.numel() * 4 + gate_t.numel() * 4
+    ops = 2 * terms * C_TAKE + g_elems
+    bound_ms, bound_by = bound(ops - g_elems, g_elems, in_bytes, scratch_bytes)
+    log(f"roi_align_gated_bwd bf16 {list(TRAIN_FEAT)} x {N_ROIS} ROIs, one 512-channel chunk, "
+        f"feature cotangent: kernel {times['ms']:.3f} ms at {N_ROIS} ROIs per image "
+        f"({times['ms_at_plain_n']:.3f} ms at {n}; routed on {list(TRAIN_FEAT_MRRP)} "
+        f"{times['routed_ms']:.3f} ms); plain {times['plain_ms']:.3f} ms at {n} (routed "
+        f"{times['routed_plain_ms']:.3f} ms); bound {bound_ms:.3f} ms at {N_ROIS} ({bound_by}: "
+        f"{(in_bytes + scratch_bytes) / 1e6:.1f} MB, {ops / 1e9:.3f} G operations, "
+        f"{terms * C_TAKE // 2 / 1e9:.3f} G float2 atomics)")
+    return {"max_abs_err": max_err, "bound_ms": bound_ms, "bound_by": bound_by,
+            "n_rois": N_ROIS, "plain_n_rois": n, **times}
+
+
 class DetectionCounter:
     """Evaluator that counts detections per image and checks they are finite."""
 
@@ -500,11 +700,12 @@ def profile_batch(torch, model, batch, emb, out_dir, tag):
         log(f"  {getattr(e, dev_attr) / 1e3:10.3f} ms  x{e.count:<6d} {e.key[:90]}")
 
 
-def load_cfg(config):
+def load_cfg(config, pooler=None, align_kernel=None):
     """The config of a slice: TTA off, bf16 compute; the VGG16 YAMLs'
     ``RPN.IN_FEATURES`` set to ``["plain5"]`` (they inherit the base's
     ``res5``, which a VGG16 lacks: ``check_supported`` refuses it by
-    name)."""
+    name); ``pooler`` sets ``POOLER_TYPE``, ``align_kernel``
+    ``TPU.ROI_ALIGN_KERNEL``."""
     from wsovod_torch import get_cfg
 
     cfg = get_cfg()
@@ -513,30 +714,68 @@ def load_cfg(config):
     cfg.TPU.COMPUTE_DTYPE = "bfloat16"
     if "vgg" in cfg.MODEL.BACKBONE.NAME:
         cfg.MODEL.RPN.IN_FEATURES = ["plain5"]
+    if pooler is not None:
+        cfg.MODEL.ROI_BOX_HEAD.POOLER_TYPE = pooler
+    if align_kernel is not None:
+        cfg.TPU.ROI_ALIGN_KERNEL = align_kernel
     return cfg
 
 
 def pool_kind(model):
-    """``(loop, mrrp, n_chunks)`` of a model's pooler: ROILoopPool or the
-    gated ROIPool, MRRP or not, and channel chunks per pooled feature."""
+    """``(kind, mrrp, n_chunks)`` of a model's pooler: ``"loop"`` (the
+    ROILoopPool), ``"align"`` (ROIAlign) or ``"pool"`` (the gated ROIPool),
+    MRRP or not, and channel chunks per pooled feature."""
     heads = model.roi_heads
     channels = model.backbone.output_channels()[heads.in_features[0]]
-    return (heads.pooler.pooler_type == "ROILoopPool", model.mrrp_num_branch > 0,
-            channels // heads.c_take)
+    kind = {"ROILoopPool": "loop", "ROIAlign": "align", "ROIAlignV2": "align"}.get(
+        heads.pooler.pooler_type, "pool")
+    return kind, model.mrrp_num_branch > 0, channels // heads.c_take
 
 
-def run_slice(torch, dev, rp, tag, config, emb):
+# the launch counters of each pooler kind's forward and backward kernels
+# (module name, attribute), in the wrappers' modules
+FWD_COUNTERS = {"pool": ("rp", "LAUNCHES"), "loop": ("rp", "LOOP_LAUNCHES"),
+                "align": ("ra", "LAUNCHES")}
+BWD_COUNTERS = {"pool": ("rp", "BWD_LAUNCHES"), "loop": ("rp", "LOOP_BWD_LAUNCHES"),
+                "align": ("ra", "BWD_LAUNCHES")}
+ALL_COUNTERS = tuple(FWD_COUNTERS.values()) + tuple(BWD_COUNTERS.values())
+
+
+def counters_to_zero(mods):
+    for mod, attr in ALL_COUNTERS:
+        setattr(mods[mod], attr, 0)
+
+
+def read_counters(mods):
+    return {(mod, attr): getattr(mods[mod], attr) for mod, attr in ALL_COUNTERS}
+
+
+def align_near(got, want, rtol):
+    """``(ok, max |err|)``: |got - want| <= rtol |want| + 1e-5 max |want|
+    (float32 sums in another order: rtol 1e-5, or one bfloat16 step, 2**-7,
+    where the result is rounded to bfloat16)."""
+    err = (got.float() - want.float()).abs()
+    scale = want.float().abs().max()
+    return bool(scale > 0 and (err <= rtol * want.float().abs() + 1e-5 * scale).all()), \
+        err.max().item()
+
+
+def run_slice(torch, dev, mods, tag, config, emb, pooler=None, align_kernel=None):
     """Drive one slice through ``inference_on_dataset`` and check it (see
-    the module docstring); returns the slice kernel's launch count."""
+    the module docstring); returns the slice kernel's launch count and the
+    largest difference of a model chunk from the plain version."""
     from wsovod_torch.engine.evaluator import inference_on_dataset
     from wsovod_torch.models import build_model
 
-    cfg = load_cfg(config)
+    rp, ra = mods["rp"], mods["ra"]
+    cfg = load_cfg(config, pooler, align_kernel)
     t0 = time.perf_counter()
     model = build_model(cfg, device=dev, seed=0)
-    loop, mrrp, n_chunks = pool_kind(model)
-    counter, other = ("LOOP_LAUNCHES", "LAUNCHES") if loop else ("LAUNCHES", "LOOP_LAUNCHES")
-    log(f"{tag} model: {os.path.basename(config)}, "
+    kind, mrrp, n_chunks = pool_kind(model)
+    counter = FWD_COUNTERS[kind]
+    window = getattr(model.roi_heads.pooler, "window", None)
+    log(f"{tag} model: {os.path.basename(config)}, {cfg.MODEL.ROI_BOX_HEAD.POOLER_TYPE}"
+        f"{f' (windowed, {window})' if window else ''}, "
         f"{sum(p.numel() for p in model.parameters()) / 1e6:.3f}M parameters, built in "
         f"{time.perf_counter() - t0:.3f} s")
     warm = make_batches(1, seed=7)
@@ -560,22 +799,22 @@ def run_slice(torch, dev, rp, tag, config, emb):
     hooks = [model.roi_heads.pooler.register_forward_hook(capture),
              model.proposal_generator.register_forward_hook(capture_rpn)]
     torch.cuda.reset_peak_memory_stats(dev)
-    setattr(rp, counter, 0)
-    setattr(rp, other, 0)
+    counters_to_zero(mods)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     counts = inference_on_dataset(model, batches, DetectionCounter(), embeddings=emb)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
-    launches, other_launches = getattr(rp, counter), getattr(rp, other)
+    launched = read_counters(mods)
+    launches = launched.pop(counter)
     for h in hooks:
         h.remove()
     n_images = B * N_BATCHES
     peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
 
-    if launches != n_chunks * N_BATCHES or other_launches != 0:
+    if launches != n_chunks * N_BATCHES or any(launched.values()):
         raise AssertionError(f"{tag}: {counter} {launches} (expected {n_chunks * N_BATCHES}), "
-                             f"{other} {other_launches} (expected 0)")
+                             f"the others {launched} (expected 0)")
     if len(counts) != n_images or min(counts.values()) <= 0:
         raise AssertionError(f"{tag}: images without detections: {counts}")
     if len(captured) != n_chunks:
@@ -585,15 +824,22 @@ def run_slice(torch, dev, rp, tag, config, emb):
         assert rows == 1, rows
         assert out.shape == (B, N_ROIS, 7, 7, C_TAKE), out.shape
         assert feat.shape[0] == (N_BRANCH * B if mrrp else B), feat.shape
-        if loop:
+        if kind == "loop":
             want = rp.roi_loop_pool_gated_plain(feat, boxes, gate, src, c_base, c_take, 1, 7, 0.125,
                                                 1.8, max_elems=1 << 28)[0]
+        elif kind == "align":
+            assert (src is not None) == mrrp  # routed by branch under MRRP only
+            want = ra.roi_align_gated_plain(feat, boxes, gate, c_base, c_take, 7, 0.125, ALIGN_S,
+                                            src=src, window=window, max_elems=1 << 27)
         else:
             assert (src is not None) == mrrp  # routed by branch under MRRP only
             want = rp.roi_pool_gated_plain(feat, boxes, gate, c_base, c_take, 7, 0.125,
                                            max_elems=1 << 28, src=src)
         max_err = max(max_err, (out.float() - want.float()).abs().max().item())
-        if not torch.equal(out, want):
+        if kind == "align":  # float32 sums in another order, one bf16 rounding
+            if not align_near(out, want, 2.0 ** -7)[0]:
+                raise AssertionError(f"{tag}: model chunk {k} differs from the plain align")
+        elif not torch.equal(out, want):
             raise AssertionError(f"{tag}: model chunk {k} differs from the plain pool")
     rpn = rpn_out[0]
     branches = torch.unique(torch.div(rpn.level_ids[rpn.valid], 1000, rounding_mode="floor")).tolist()
@@ -601,8 +847,8 @@ def run_slice(torch, dev, rp, tag, config, emb):
         raise AssertionError(f"{tag}: RPN proposals from branches {branches} only")
     log(f"{tag} slice: {n_images} images in {dt:.3f} s = {n_images / dt:.3f} images/s (B={B}, "
         f"{H}x{W}, {N_ROIS} ROIs/image, bf16); detections/image min {min(counts.values())} "
-        f"max {max(counts.values())}; {counter} {launches}; first batch's {len(captured)} pooled "
-        f"chunks == plain; RPN proposals from branches {branches} ({int(rpn.valid.sum())} valid of "
+        f"max {max(counts.values())}; {'.'.join(counter)} {launches}; first batch's "
+        f"{len(captured)} pooled chunks == plain (max |err| {max_err:.3g}); RPN proposals from branches {branches} ({int(rpn.valid.sum())} valid of "
         f"{rpn.valid.numel()}); the RPN's input feature {feat_shape}, std per "
         f"copy {[round(v, 3) for v in feat_std]}; peak memory {peak_gb:.3f} GB")
     batch0 = {k: torch.as_tensor(batches[0][k]).to(dev)
@@ -889,7 +1135,6 @@ def train_batches(n, seed):
     return out
 
 
-ALL_COUNTERS = ("LAUNCHES", "LOOP_LAUNCHES", "BWD_LAUNCHES", "LOOP_BWD_LAUNCHES")
 LOSSES = ("loss_cls_object_mining", "loss_cls_r0", "loss_box_reg_r0", "loss_rpn_cls",
           "loss_rpn_loc")
 
@@ -974,13 +1219,13 @@ def train_split(torch, trainer, batches, emb, tag):
             "busy_share": busy_ms / wall_ms}
 
 
-def run_train(torch, dev, rp, tag, config, freeze_at, iters, emb, resume_check):
+def run_train(torch, dev, mods, tag, config, freeze_at, iters, emb, resume_check, pooler=None):
     """Drive ``WSOVODTrainer.train()`` on ``config`` for ``iters``
     iterations and check it (see the module docstring); returns ``(pool
     launches, backward launches)`` of the config's pooler."""
     from wsovod_torch.engine.trainer import WSOVODTrainer
 
-    cfg = load_cfg(config)
+    cfg = load_cfg(config, pooler)
     cfg.MODEL.WEIGHTS = ""  # seeded random weights
     cfg.MODEL.BACKBONE.FREEZE_AT = freeze_at
     cfg.SOLVER.MAX_ITER = iters
@@ -1004,10 +1249,10 @@ def run_train(torch, dev, rp, tag, config, freeze_at, iters, emb, resume_check):
         f"{sum(p.numel() for p in model.parameters()) / 1e6:.3f}M parameters, built in "
         f"{time.perf_counter() - t0:.3f} s")
     before = {n: p.detach().clone() for n, p in model.named_parameters()}
-    loop, mrrp, n_chunks = pool_kind(model)
+    kind, mrrp, n_chunks = pool_kind(model)
+    loop = kind == "loop"
     vgg = "vgg" in cfg.MODEL.BACKBONE.NAME
-    counters = ("LOOP_LAUNCHES", "LOOP_BWD_LAUNCHES") if loop else ("LAUNCHES", "BWD_LAUNCHES")
-    others = tuple(c for c in ALL_COUNTERS if c not in counters)
+    counters = (FWD_COUNTERS[kind], BWD_COUNTERS[kind])
     rows, branches, captured = [], set(), []
 
     def pooled(mod, inp, out):
@@ -1018,8 +1263,10 @@ def run_train(torch, dev, rp, tag, config, freeze_at, iters, emb, resume_check):
         branches.update(torch.div(props.level_ids[props.valid], 1000,
                                   rounding_mode="floor").unique().tolist())
 
-    bwd_name = "roi_loop_pool_gated_bwd" if loop else "roi_pool_gated_bwd"
-    kernel_bwd, plain_bwd = getattr(rp, bwd_name), getattr(rp, bwd_name + "_plain")
+    bwd_mod = mods["ra" if kind == "align" else "rp"]
+    bwd_name = {"loop": "roi_loop_pool_gated_bwd", "align": "roi_align_gated_bwd"}.get(
+        kind, "roi_pool_gated_bwd")
+    kernel_bwd, plain_bwd = getattr(bwd_mod, bwd_name), getattr(bwd_mod, bwd_name + "_plain")
     k = LOOP_BWD_PLAIN_N // 4
 
     def capture_bwd(*args, **kw):
@@ -1044,22 +1291,21 @@ def run_train(torch, dev, rp, tag, config, freeze_at, iters, emb, resume_check):
 
     hooks = [model.roi_heads.pooler.register_forward_hook(pooled),
              model.proposal_generator.register_forward_hook(proposed)]
-    setattr(rp, bwd_name, capture_bwd)
+    setattr(bwd_mod, bwd_name, capture_bwd)
     torch.cuda.reset_peak_memory_stats(dev)
-    for c in ALL_COUNTERS:
-        setattr(rp, c, 0)
+    counters_to_zero(mods)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     try:
         trainer.train()
         torch.cuda.synchronize()
     finally:
-        setattr(rp, bwd_name, kernel_bwd)
+        setattr(bwd_mod, bwd_name, kernel_bwd)
         for h in hooks:
             h.remove()
     dt = time.perf_counter() - t0
-    launches, bwd_launches = (getattr(rp, c) for c in counters)
-    other = {c: getattr(rp, c) for c in others}
+    other = read_counters(mods)
+    launches, bwd_launches = (other.pop(c) for c in counters)
     peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
     want_bwd = n_chunks * iters if freeze_at <= 4 else 0
     if (launches, bwd_launches) != (n_chunks * iters, want_bwd) or any(other.values()):
@@ -1069,7 +1315,7 @@ def run_train(torch, dev, rp, tag, config, freeze_at, iters, emb, resume_check):
         raise AssertionError(f"{tag}: pooled rows per chunk {rows}")
     if mrrp and branches != set(range(N_BRANCH)):
         raise AssertionError(f"{tag}: RPN proposals from branches {sorted(branches)} only")
-    if mrrp and freeze_at <= 4:
+    if (mrrp or kind == "align") and freeze_at <= 4:
         got, _ = captured[0](kernel_bwd)
         want, _ = captured[0](plain_bwd, max_elems=1 << 28)
         err = (got.float() - want.float()).abs()
@@ -1161,7 +1407,10 @@ def main() -> int:
         return 2
     sys.path.insert(0, REPO)
     from wsovod_torch import kernels
+    from wsovod_torch.ops import roi_align as ra
     from wsovod_torch.ops import roi_pool as rp
+
+    mods = {"rp": rp, "ra": ra}
 
     # ---- 1. device and build
     dev = torch.device("cuda", 0)
@@ -1173,7 +1422,7 @@ def main() -> int:
     log(f"allow_tf32: matmul {torch.backends.cuda.matmul.allow_tf32}, "
         f"cudnn {torch.backends.cudnn.allow_tf32}")
     sources = ["roi_pool_gated.cu", "roi_loop_pool_gated.cu", "roi_pool_gated_bwd.cu",
-               "roi_loop_pool_gated_bwd.cu"]
+               "roi_loop_pool_gated_bwd.cu", "roi_align_gated.cu", "roi_align_gated_bwd.cu"]
     t0 = time.perf_counter()
     libs = kernels.build_all(sources)
     for src in sources:
@@ -1188,49 +1437,66 @@ def main() -> int:
     # ---- 2., 3. kernels vs plain at the slices' shapes
     records = {"roi_pool_gated": phase_pool_kernel(torch, dev, rp),
                "roi_loop_pool_gated": phase_loop_kernel(torch, dev, rp),
-               "roi_pool_gated_routed": phase_routed_kernel(torch, dev, rp)}
+               "roi_pool_gated_routed": phase_routed_kernel(torch, dev, rp),
+               **phase_align_kernel(torch, dev, ra)}
 
     # ---- 4., 5. the inference slices
     emb = torch.randn(80, 512, generator=torch.Generator().manual_seed(2)).to(dev)
     by_path = {name: {} for name in ("roi_pool_gated", "roi_loop_pool_gated",
-                                     "roi_pool_gated_routed", "roi_pool_gated_bwd",
-                                     "roi_loop_pool_gated_bwd", "roi_pool_gated_bwd_routed")}
-    for name, tag, config in (("roi_pool_gated", "plain", PLAIN_CONFIG),
-                              ("roi_loop_pool_gated", "mrrp", MRRP_CONFIG),
-                              ("roi_pool_gated", "vgg", VGG_CONFIG),
-                              ("roi_pool_gated_routed", "mrrp-vgg", MRRP_VGG_CONFIG)):
-        launches, err = run_slice(torch, dev, rp, tag, config, emb)
+                                     "roi_pool_gated_routed", "roi_align_gated",
+                                     "roi_align_gated_routed", "roi_pool_gated_bwd",
+                                     "roi_loop_pool_gated_bwd", "roi_pool_gated_bwd_routed",
+                                     "roi_align_gated_bwd")}
+    for name, tag, config, pooler in (
+            ("roi_pool_gated", "plain", PLAIN_CONFIG, None),
+            ("roi_loop_pool_gated", "mrrp", MRRP_CONFIG, None),
+            ("roi_pool_gated", "vgg", VGG_CONFIG, None),
+            ("roi_pool_gated_routed", "mrrp-vgg", MRRP_VGG_CONFIG, None),
+            ("roi_align_gated", "align", PLAIN_CONFIG, ALIGN),
+            ("roi_align_gated_routed", "mrrp-align", MRRP_CONFIG, ALIGN),
+            ("roi_align_gated", "align-approx", PLAIN_CONFIG, ALIGN)):
+        launches, err = run_slice(torch, dev, mods, tag, config, emb, pooler,
+                                  "pallas_approx" if tag == "align-approx" else None)
         by_path[name][tag] = launches
         records[name]["max_abs_err"] = max(records[name]["max_abs_err"], err)
     for name, tag in (("roi_pool_gated", "plain"), ("roi_loop_pool_gated", "mrrp"),
-                      ("roi_pool_gated_routed", "mrrp-vgg")):
+                      ("roi_pool_gated_routed", "mrrp-vgg"), ("roi_align_gated", "align"),
+                      ("roi_align_gated_routed", "mrrp-align")):
         records[name]["launches"] = by_path[name][tag]
 
-    # ---- 6., 7. the backward kernels vs plain; 8.-11. the train slices
+    # ---- 6., 7. the backward kernels vs plain; 8.-12. the train slices
     records["roi_pool_gated_bwd"] = phase_bwd_kernel(torch, dev, rp)
     records["roi_loop_pool_gated_bwd"] = phase_loop_bwd_kernel(torch, dev, rp)
     records["roi_pool_gated_bwd_routed"] = phase_routed_bwd_kernel(torch, dev, rp)
-    for tag, config, freeze_at, iters, pool, bwd_name in (
-            ("train-plain", PLAIN_CONFIG, 5, TRAIN_ITERS, "roi_pool_gated", "roi_pool_gated_bwd"),
-            ("train-res5", PLAIN_CONFIG, 4, RES5_ITERS, "roi_pool_gated", "roi_pool_gated_bwd"),
+    records["roi_align_gated_bwd"] = phase_align_bwd_kernel(torch, dev, ra)
+    for tag, config, freeze_at, iters, pool, bwd_name, pooler in (
+            ("train-plain", PLAIN_CONFIG, 5, TRAIN_ITERS, "roi_pool_gated", "roi_pool_gated_bwd",
+             None),
+            ("train-res5", PLAIN_CONFIG, 4, RES5_ITERS, "roi_pool_gated", "roi_pool_gated_bwd",
+             None),
             ("train-mrrp", MRRP_CONFIG, 5, MRRP_ITERS, "roi_loop_pool_gated",
-             "roi_loop_pool_gated_bwd"),
+             "roi_loop_pool_gated_bwd", None),
             ("train-mrrp-res5", MRRP_CONFIG, 4, MRRP_RES5_ITERS, "roi_loop_pool_gated",
-             "roi_loop_pool_gated_bwd"),
+             "roi_loop_pool_gated_bwd", None),
             ("train-mrrp-vgg", MRRP_VGG_CONFIG, 5, VGG_ITERS, "roi_pool_gated_routed",
-             "roi_pool_gated_bwd_routed"),
+             "roi_pool_gated_bwd_routed", None),
             ("train-mrrp-vgg-plain5", MRRP_VGG_CONFIG, 4, VGG_ITERS, "roi_pool_gated_routed",
-             "roi_pool_gated_bwd_routed")):
-        launches, bwd = run_train(torch, dev, rp, tag, config, freeze_at, iters, emb,
-                                  resume_check=freeze_at == 5)
+             "roi_pool_gated_bwd_routed", None),
+            ("train-align", PLAIN_CONFIG, 5, ALIGN_ITERS, "roi_align_gated",
+             "roi_align_gated_bwd", ALIGN),
+            ("train-align-res5", PLAIN_CONFIG, 4, ALIGN_ITERS, "roi_align_gated",
+             "roi_align_gated_bwd", ALIGN)):
+        launches, bwd = run_train(torch, dev, mods, tag, config, freeze_at, iters, emb,
+                                  resume_check=freeze_at == 5, pooler=pooler)
         by_path[pool][tag] = launches
         by_path[bwd_name][tag] = bwd
     for name, tag in (("roi_pool_gated_bwd", "train-res5"),
                       ("roi_loop_pool_gated_bwd", "train-mrrp-res5"),
-                      ("roi_pool_gated_bwd_routed", "train-mrrp-vgg-plain5")):
+                      ("roi_pool_gated_bwd_routed", "train-mrrp-vgg-plain5"),
+                      ("roi_align_gated_bwd", "train-align-res5")):
         records[name]["launches"] = by_path[name][tag]
 
-    # ---- 12. result lines
+    # ---- 13. result lines
     meta = {
         "roi_pool_gated": ("wsovod_torch/kernels/csrc/roi_pool_gated.cu",
                            "wsovod_tpu/ops/pallas/roi_pool_fused.py:1585"),
@@ -1247,15 +1513,27 @@ def main() -> int:
                                     "wsovod_tpu/ops/pallas/roi_pool_fused.py:2240"),
         "roi_pool_gated_bwd_routed": ("wsovod_torch/kernels/csrc/roi_pool_gated_bwd.cu",
                                       "wsovod_tpu/ops/pallas/roi_pool_fused.py:2240"),
+        # 2.6: the fused batched ROIAlignV2 (its windowed mode, 2.8's numbers,
+        # roi_align_kernel.py:307, is timed in window_ms and launched by the
+        # align-approx slice); 2.7: the per-image exact align the MRRP pooler
+        # runs per branch copy; their backward
+        "roi_align_gated": ("wsovod_torch/kernels/csrc/roi_align_gated.cu",
+                            "wsovod_tpu/ops/pallas/roi_align_fused.py:408"),
+        "roi_align_gated_routed": ("wsovod_torch/kernels/csrc/roi_align_gated.cu",
+                                   "wsovod_tpu/ops/pallas/roi_align_kernel.py:554"),
+        "roi_align_gated_bwd": ("wsovod_torch/kernels/csrc/roi_align_gated_bwd.cu",
+                                "wsovod_tpu/ops/pallas/roi_align_fused.py:453"),
     }
-    extra = ("n_rois", "plain_n_rois", "ms_at_plain_n")
+    extra = ("n_rois", "plain_n_rois", "ms_at_plain_n", "window_ms", "window_plain_ms", "routed_ms",
+             "routed_plain_ms")
     log(card)
     log(json.dumps({"kernels": [{
         "name": name, "route": "cuda", "source": meta[name][0], "replaces": meta[name][1],
         "launches": r["launches"], "max_abs_err": r["max_abs_err"], "ms": r["ms"],
         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
-        # no single PyTorch call computes a gated RoIPool, ROILoopPool or
-        # their backward (and the card's host has no torchvision)
+        # no single PyTorch call computes a gated RoIPool, ROILoopPool, a
+        # gated, routed ROIAlign or their backward (and the card's host has
+        # no torchvision)
         "library_ms": None,
         "launches_by_path": by_path[name],
         **{k: r[k] for k in extra if k in r},

@@ -11,6 +11,7 @@ import numpy as np
 import pytest
 import torch
 
+from wsovod_torch.ops import roi_align as align
 from wsovod_torch.ops import roi_pool as port
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -47,7 +48,9 @@ def test_kernel_equals_plain(cuda):
     non-contiguous features are refused. The loop kernel at a medium size
     (3 branch copies, 600 ROIs per image, routed), rows 1 and 3. Both
     backward kernels against their plain versions to float tolerance. The
-    gated ROIPool and its backward routed by a per-ROI source copy."""
+    gated ROIPool and its backward routed by a per-ROI source copy. The
+    gated ROIAlign and its backward."""
+    _check_align_kernels(cuda)
     _check_loop_kernel(cuda)
     _check_backward_kernel(cuda)
     _check_loop_backward_kernel(cuda)
@@ -107,6 +110,67 @@ def _check_backward_kernel(cuda):
         assert (port.LAUNCHES, port.BWD_LAUNCHES) == (before[0] + 1, before[1] + 1)
         err = (leaf.grad.float() - want_f.float()).abs()
         assert (err <= rtol * want_f.float().abs() + 1e-5 * scale).all(), (dtype, err.max())
+
+
+def _assert_near(got, want, rtol, what):
+    """|got - want| <= rtol |want| + 1e-5 max |want|: float32 sums in
+    another order (atomics in a varying one), rtol 1e-5 in float32 and one
+    bfloat16 step (2**-7) where the result is rounded to bfloat16."""
+    err = (got.float() - want.float()).abs()
+    scale = want.float().abs().max()
+    assert scale > 0 and (err <= rtol * want.float().abs() + 1e-5 * scale).all(), (
+        what, err.max().item(), scale.item())
+
+
+def _check_align_kernels(cuda):
+    """``roi_align_gated`` and ``roi_align_gated_bwd`` against their plain
+    versions: exact ROIAlignV2 (``sampling_ratio`` 1 and 2), ROIAlign
+    (``aligned`` false), routed by a per-ROI source copy (3 copies), and the
+    windowed mode (the forward); an inner channel chunk; both dtypes; both
+    cotangents, and through ``RoIAlignGatedFunction``; one launch counted
+    per call. Tolerance as ``_assert_near``; the gate cotangent rtol 1e-4."""
+    b, n, n_br = 2, 300, 3
+    for dtype, rtol in ((torch.float32, 1e-5), (torch.bfloat16, 2.0 ** -7)):
+        feat, rois, gate = _inputs(cuda, dtype)
+        gate[:, 5] = 0.0
+        copies = torch.cat([feat, -feat, feat * 2]).contiguous()
+        branch = torch.randint(0, n_br, (b, n), generator=torch.Generator().manual_seed(3))
+        src = (branch * b + torch.arange(b)[:, None]).to(cuda, torch.int32)
+        c_base, c_take = 16, 32
+        for s, aligned, f, sr, window in ((2, True, feat, None, None), (1, True, feat, None, None),
+                                          (2, False, feat, None, None),
+                                          (2, True, copies, src, None), (2, True, feat, None, 8)):
+            what = (dtype, s, aligned, sr is not None, window)
+            args = (rois, gate, c_base, c_take, 7, 0.125, s, aligned)
+            before = align.LAUNCHES
+            got = align.roi_align_gated(f, *args, src=sr, window=window)
+            torch.cuda.synchronize()
+            assert align.LAUNCHES == before + 1
+            want = align.roi_align_gated_plain(f, *args, src=sr, window=window)
+            assert got.dtype == dtype
+            _assert_near(got, want, rtol, what)
+            if window is not None:
+                continue
+            g = torch.randn(want.shape, generator=torch.Generator().manual_seed(2)).to(cuda, dtype)
+            before = align.BWD_LAUNCHES
+            got_f, got_g = align.roi_align_gated_bwd(f, rois, gate, want, g, *args[2:], src=sr)
+            torch.cuda.synchronize()
+            assert align.BWD_LAUNCHES == before + 1
+            want_f, want_g = align.roi_align_gated_bwd_plain(f, rois, gate, want, g, *args[2:],
+                                                             src=sr)
+            _assert_near(got_f, want_f, rtol, what)
+            torch.testing.assert_close(got_g, want_g, rtol=1e-4, atol=1e-4 * want_g.abs().max())
+            assert (got_g[:, 5] == 0).all()
+            leaf = f.clone().requires_grad_(True)
+            before = (align.LAUNCHES, align.BWD_LAUNCHES)
+            y = align.RoIAlignGatedFunction.apply(leaf, *args, sr)
+            (y.float() * g.float()).sum().backward()
+            torch.cuda.synchronize()
+            assert (align.LAUNCHES, align.BWD_LAUNCHES) == (before[0] + 1, before[1] + 1)
+            _assert_near(leaf.grad, want_f, rtol, what)
+    feat, rois, gate = _inputs(cuda, torch.float16)
+    with pytest.raises(TypeError):
+        align.roi_align_gated(feat, rois, gate, 0, 64)
 
 
 def _check_routed_kernels(cuda):
@@ -215,8 +279,10 @@ def _check_loop_backward_kernel(cuda):
 
 
 def test_model_forward_on_cuda(cuda):
-    """Narrow models end to end on the card, plain and MRRP: the pooler goes
-    through its kernel once per channel chunk, detections are finite."""
+    """Narrow models end to end on the card, plain and MRRP, with ROIPool,
+    ROILoopPool and ROIAlignV2: the pooler goes through its kernel once per
+    channel chunk, detections are finite; train steps run the backward
+    kernels."""
     from wsovod_torch import get_cfg
     from wsovod_torch.models import build_model
 
@@ -296,6 +362,33 @@ def test_model_forward_on_cuda(cuda):
     assert len(losses) == 5 and all(torch.isfinite(v) for v in losses.values()), losses
     assert model.backbone.res5[0].conv1.weight.grad.abs().sum() > 0
     _check_mrrp_vgg_train_step(cuda, batch, emb)
+
+    # ROIAlignV2, plain and MRRP (routed by branch): one align launch per
+    # chunk at inference; a plain train step with res5 trainable runs the
+    # align's backward once
+    cfg.MODEL.ROI_BOX_HEAD.POOLER_TYPE = "ROIAlignV2"
+    for mrrp in (False, True):
+        cfg.MODEL.MRRP.MRRP_ON = mrrp
+        cfg.MODEL.ANCHOR_GENERATOR.SIZES = ([[32, 64], [128, 256], [512, 768]] if mrrp
+                                            else [[32, 64, 128, 256, 512]])
+        model = build_model(cfg, device=cuda, seed=0)
+        before = align.LAUNCHES
+        with torch.inference_mode():
+            det, probs, boxes = model(batch, embeddings=emb)
+        torch.cuda.synchronize()
+        assert align.LAUNCHES == before + 1
+        assert torch.isfinite(det.scores[det.valid]).all() and det.valid.any()
+    cfg.MODEL.MRRP.MRRP_ON = False
+    cfg.MODEL.ANCHOR_GENERATOR.SIZES = [[32, 64, 128, 256, 512]]
+    model = build_model(cfg, device=cuda, seed=0).train()
+    before = (align.LAUNCHES, align.BWD_LAUNCHES)
+    losses = model.forward_train(batch, emb, iteration=5,
+                                 generator=torch.Generator(device=cuda).manual_seed(0))
+    sum(losses.values()).backward()
+    torch.cuda.synchronize()
+    assert (align.LAUNCHES, align.BWD_LAUNCHES) == (before[0] + 1, before[1] + 1)
+    assert len(losses) == 5 and all(torch.isfinite(v) for v in losses.values()), losses
+    assert model.backbone.res5[0].conv1.weight.grad.abs().sum() > 0
 
 
 def _check_mrrp_vgg_train_step(cuda, batch, emb):

@@ -11,7 +11,9 @@ VGG16-DC5 detectors'.
   whose max ties 0.
 * The forward on the tiny MRRP R18 config (``configs/COCO-Detection/
   WSOVOD_MRRP_WSR_18_DC5_1x.yaml`` cut as ``tiny_cfg``) against
-  ``model.apply(..., train=False)``, with all branches at test and with one.
+  ``model.apply(..., train=False)``, with all branches at test and with one;
+  with the ``ROIAlignV2`` pooler routed by branch, the ROI heads on the JAX
+  package's features and proposals against its ``roi_heads.inference``.
   On the CPU the JAX pooler takes its unfused per-branch path, so no Pallas
   interpret run is involved. Tolerances as the plain slice's: rtol 1e-4, box
   atol 1e-3; validity, classes and ``level_ids`` exactly.
@@ -48,6 +50,7 @@ from wsovod_tpu.ops.roi_pool import roi_pool as jax_roi_pool
 from wsovod_tpu.models.mil_heads import ObjectMiningOutputLayers as JaxObjectMiner
 from wsovod_tpu.utils.weight_import import import_vgg16, import_wsovod_model
 from wsovod_torch import get_cfg
+from wsovod_torch.engine.evaluator import inference_on_dataset
 from wsovod_torch.models import build_model
 from wsovod_torch.models.backbones import VGG16
 from wsovod_torch.models.mil_heads import ObjectMiningOutputLayers
@@ -68,13 +71,16 @@ def _t(x):
 def _jax_loop_gated(feat, rois, gate, src, c_base, c_take, scale, dtype):
     """``roi_loop_pool(feat[src[b, n]], rois[b]) * gate`` per ROI, the
     reference's unfused MRRP pooler path: every copy pools every ROI of its
-    image, each ROI keeps its copy's rows. ``[3, B, N, 7, 7, c_take]``."""
+    image, each ROI keeps its copy's rows. ``[3, B, N, 7, 7, c_take]``. Op by
+    op, as the reference rounds each bfloat16 product (copies are sliced in
+    numpy: a slice of a JAX array compiles a program per index)."""
     b, n = src.shape
-    f = jnp.asarray(feat[..., c_base:c_base + c_take]).astype(dtype)
+    f = feat[..., c_base:c_base + c_take]
     out = np.zeros((3, b, n, 7, 7, c_take), np.float32)
     for i in range(b):
         for s in np.unique(src[i]):
-            pooled = roi_loop_pool(f[s], jnp.asarray(rois[i]), 7, scale, 1.8)
+            pooled = roi_loop_pool(jnp.asarray(f[s]).astype(dtype), jnp.asarray(rois[i]), 7,
+                                   scale, 1.8)
             pooled = pooled * jnp.asarray(gate[i]).astype(dtype)[None, :, None, None, None]
             sel = src[i] == s
             out[:, i, sel] = np.asarray(pooled.astype(jnp.float32))[:, sel]
@@ -168,8 +174,9 @@ def test_mrrp_inference_matches_jax():
     """All branches at test (``TEST_BRANCH_IDX -1``) and one (``1``): the
     backbone's branch concat, the RPN's group proposals with their
     ``level_ids``, the ROI heads on the JAX proposals, and the whole forward
-    with its top-5 detections. Then the data-aware vector of a single-branch
-    batch of three images."""
+    with its top-5 detections; the ROI heads with all branches and the
+    ``ROIAlignV2`` pooler routed by branch. Then the data-aware vector of a
+    single-branch batch of three images."""
     _check_single_branch_batch_of_three()
     _check_mrrp_vgg_inference()
     batch = make_batch(0)
@@ -218,6 +225,74 @@ def test_mrrp_inference_matches_jax():
             np.testing.assert_allclose(tdet.scores[i].numpy()[top], det.scores[i][top], rtol=RTOL)
             np.testing.assert_allclose(tdet.boxes[i].numpy()[top], det.boxes[i][top],
                                        rtol=RTOL, atol=BOX_ATOL)
+    _check_mrrp_align_heads()
+
+
+def _check_mrrp_align_heads():
+    """The ROI heads of the tiny MRRP R18 with the ``ROIAlignV2`` pooler,
+    routed by branch, on the JAX package's features, proposals (with their
+    ``level_ids``) and data-aware vector of all three branches (the pooler
+    changes nothing before the ROI heads): the port's against the JAX
+    package's ``roi_heads.inference``, which pools every branch copy with
+    the jnp ``roi_align`` and keeps each ROI's. Probabilities and boxes as
+    the forward's (rtol 1e-4, box atol 1e-3), the top-5 detections' classes
+    exactly. Then ``inference_on_dataset`` runs the model over two
+    batches."""
+    from wsovod_tpu.structures.instances import Instances as JaxInstances
+
+    batch = make_batch(0)
+    feats, rpn, daf, (_, _, _, props) = jax_stages(0, MRRP_YAML, -1)
+    level_ids = np.concatenate([rpn.level_ids, np.zeros_like(batch["sam_valid"], np.int32)], 1)
+    assert len(np.unique(level_ids[props[2]] // 1000)) == 3
+    jm, params = jax_reference(MRRP_YAML, -1, "ROIAlignV2")
+
+    def heads(m, f, boxes, logits, valid, lv, sizes, d, e):
+        p = JaxInstances(valid, proposal_boxes=boxes, objectness_logits=logits, level_ids=lv)
+        return m.roi_heads.inference(f, p, sizes, data_aware_features=d, embeddings=e)
+
+    args = (feats, *props[:2], props[2], level_ids, batch["image_sizes"], daf, embeddings())
+    det, probs, boxes = jax.tree_util.tree_map(np.asarray, jax.jit(
+        lambda p, *a: jm.apply(p, *a, method=heads))(params, *jax.tree_util.tree_map(jnp.asarray,
+                                                                                  args)))
+    tm = torch_model_from_jax(MRRP_YAML, -1, "ROIAlignV2")
+    assert tm.roi_heads.pooler.pooler_type == "ROIAlignV2"
+    jprops = Instances(torch.from_numpy(props[2]), proposal_boxes=torch.from_numpy(props[0]),
+                       objectness_logits=torch.from_numpy(props[1]),
+                       level_ids=torch.from_numpy(level_ids))
+    with torch.inference_mode():
+        tdet, tprobs, tboxes = tm.roi_heads.inference(
+            {k: torch.from_numpy(v) for k, v in feats.items()}, jprops,
+            torch.from_numpy(batch["image_sizes"]), data_aware_features=torch.from_numpy(daf),
+            embeddings=torch.from_numpy(embeddings()))
+    np.testing.assert_allclose(tprobs.numpy(), probs, rtol=RTOL, atol=1e-6)
+    np.testing.assert_allclose(tboxes.numpy(), boxes, rtol=RTOL, atol=BOX_ATOL)
+    for i in range(2):
+        v = det.valid[i]
+        top = np.argsort(np.where(v, -det.scores[i], np.inf), kind="stable")[:5]
+        assert len(top[v[top]]) == 5
+        np.testing.assert_array_equal(tdet.classes[i].numpy()[top], det.classes[i][top])
+        np.testing.assert_allclose(tdet.scores[i].numpy()[top], det.scores[i][top], rtol=RTOL)
+
+    # the entry point runs the model over two batches: finite detections
+    class Count:
+        rows = {}
+
+        def process(self, image_id, boxes, scores, classes):
+            assert np.isfinite(boxes).all() and np.isfinite(scores).all()
+            self.rows[image_id] = len(scores)
+
+        def evaluate(self):
+            return dict(self.rows)
+
+    def loader():
+        for seed in (0, 1):
+            b = make_batch(seed)
+            b["image_id"] = [f"{seed}_{i}" for i in range(2)]
+            b["orig_size"] = b["image_sizes"]
+            yield b
+
+    got = inference_on_dataset(tm, loader(), Count(), embeddings=torch.from_numpy(embeddings()))
+    assert len(got) == 4 and min(got.values()) > 0
 
 
 def _check_single_branch_batch_of_three():
@@ -327,14 +402,15 @@ def _check_vgg_backbone():
 
 def _jax_routed_pool(feat, rois, gate, src, c_base, c_take, scale, dtype):
     """The JAX package's MRRP ROIPool: every copy of image ``b`` pools all
-    of its ROIs, each ROI keeps its branch's, times the gate."""
+    of its ROIs, each ROI keeps its branch's, times the gate (op by op;
+    copies sliced in numpy, as ``_jax_loop_gated``)."""
     b, n = src.shape
     n_br = feat.shape[0] // b
-    f = jnp.asarray(feat[..., c_base:c_base + c_take]).astype(dtype)
+    f = feat[..., c_base:c_base + c_take]
     out = []
     for i in range(b):
-        pooled = jnp.stack([jax_roi_pool(f[br * b + i], jnp.asarray(rois[i]), 7, scale)
-                            for br in range(n_br)])
+        pooled = jnp.stack([jax_roi_pool(jnp.asarray(f[br * b + i]).astype(dtype),
+                                         jnp.asarray(rois[i]), 7, scale) for br in range(n_br)])
         sel = jnp.asarray(src[i] // b)[None, :, None, None, None]
         pooled = jnp.take_along_axis(pooled, sel, axis=0)[0]
         out.append(pooled * jnp.asarray(gate[i]).astype(dtype)[:, None, None, None])

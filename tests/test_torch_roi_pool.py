@@ -1,17 +1,44 @@
 """The port's plain gated ROIPool against the JAX reference
 ``wsovod_tpu.ops.roi_pool.roi_pool`` times the gate: exact (atol 0) in
 float32 and bfloat16, with overhanging, degenerate, .5-boundary and invalid
-boxes and a nonzero channel base; the wrapper contracts of both pool
-kernels, the gated ROIPool's with and without a per-ROI source copy (the
-ROILoopPool's numbers are in ``test_torch_mrrp.py``, the routed ROIPool's
-against the JAX package in ``test_torch_mrrp.py``)."""
+boxes and a nonzero channel base; the wrapper contracts of the pool and
+align kernels, the gated ROIPool's with and without a per-ROI source copy
+(the ROILoopPool's numbers are in ``test_torch_mrrp.py``, the routed
+ROIPool's against the JAX package in ``test_torch_mrrp.py``).
 
+The gated ROIAlign (``wsovod_torch.ops.roi_align``), inside the same items:
+
+* against ``wsovod_tpu.ops.roi_pool.roi_align`` times the gate, for
+  ``sampling_ratio`` 1 and 2, unrouted and routed by a per-ROI source copy,
+  with overhanging, degenerate, zero-area, wholly outside, invalid and
+  gate-0 rows. float32: atol 1e-5 of ``max |feat|`` (float32 summation
+  order). bfloat16: the port sums in float32 and rounds once, so it lies
+  within one bfloat16 step (plus the float32 atol) of the reference's
+  float32 result on the bfloat16-rounded features (the jnp gather path in
+  bfloat16 rounds at every step, and is not the yardstick). ``ROIAlign`` (``aligned`` false) against
+  ``roi_align(aligned=False)``, float32.
+* The windowed mode against ``roi_align_pallas`` in interpret mode, times
+  the gate, at ``sampling_ratio`` 2 (the pooler's), with ROIs longer than
+  their window, where exact and windowed differ: float32, atol 1e-5 of
+  ``max |feat|``.
+* The plain backward against the JAX package's ``_fused_ad_bwd`` (both
+  cotangents), float32, rtol and atol 1e-5; routed by branch, each copy's
+  cotangent equals the unrouted backward of the ROIs that read it (rtol
+  1e-6: float32 summation order).
+"""
+
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from torch_port_common import routed_pool_inputs
+from wsovod_tpu.ops.pallas.roi_align_fused import _fused_ad_bwd
+from wsovod_tpu.ops.pallas.roi_align_kernel import roi_align_pallas
+from wsovod_tpu.ops.roi_pool import roi_align as jax_roi_align
 from wsovod_tpu.ops.roi_pool import roi_pool as jax_roi_pool
+from wsovod_torch.ops import roi_align as align
 from wsovod_torch.ops import roi_pool as port
 
 SCALE = 0.125  # stride 8, the DC5 res5 scale
@@ -79,6 +106,148 @@ def test_plain_gated_pool_exact():
     assert reg[0, 0].tolist() == [1, 2, 13, 7]
     # -4 -> 0, 3.9 -> 0, 3.99 -> 0, 4.01 -> 1; degenerate sizes clamp to >= 1
     assert reg[0, 1].tolist() == [0, 0, 1, 2]
+    _check_align()
+    _check_align_window()
+    _check_align_backward()
+
+
+def _t(x):
+    return torch.from_numpy(np.array(x))
+
+
+def _align_inputs(seed, n=24):
+    """``_inputs`` plus a zero-area row, a wholly outside row and a valid
+    row of gate 0."""
+    feat, rois, gate = _inputs(seed, n=n)
+    img_w, img_h = feat.shape[2] / SCALE, feat.shape[1] / SCALE
+    rois[:, 8] = [40, 30, 40, 30]  # zero area
+    rois[:, 9] = [img_w + 20, img_h + 20, img_w + 90, img_h + 60]  # wholly outside
+    rois[:, 10] = [10, 10, 60, 50]
+    gate[:, 8:11] = [[1.5, 1.2, 0.0]]
+    return feat, rois, gate
+
+
+def _jax_align(feat, rois, gate, c_base, c_take, s, aligned=True, src=None):
+    """``roi_align(feat[copy], rois[b]) * gate`` per ROI, float32 numpy
+    ``[B, N, 7, 7, c_take]``; ``src`` picks each ROI's copy."""
+    b, n = gate.shape
+    f = np.ascontiguousarray(feat[..., c_base:c_base + c_take], np.float32)
+    out = np.zeros((b, n, P, P, c_take), np.float32)
+    for i in range(b):
+        copies = [i] if src is None else np.unique(src[i])
+        for cp in copies:
+            pooled = np.asarray(jax_roi_align(f[cp], rois[i], P, SCALE, sampling_ratio=s,
+                                              aligned=aligned))
+            sel = slice(None) if src is None else src[i] == cp
+            out[i, sel] = (pooled * gate[i][:, None, None, None])[sel]
+    return out
+
+
+def _bf16_step(x):
+    """One bfloat16 step at |x| (8 significant bits)."""
+    a = np.abs(x)
+    return np.where(a > 0, 2.0 ** (np.floor(np.log2(np.where(a > 0, a, 1.0))) - 7), 1e-30)
+
+
+def _check_align():
+    """The plain gated ROIAlign against the JAX package's ``roi_align``
+    times the gate (see the module docstring)."""
+    feat, rois, gate = _align_inputs(3)
+    atol = 1e-5 * np.abs(feat).max()
+    three = np.concatenate([feat, -feat, 2 * feat])  # [6, H, W, C]: three copies per image
+    src = (np.arange(2)[:, None] + 2 * (np.arange(rois.shape[1]) % 3)[None]).astype(np.int32)
+    for s in (1, 2):
+        for name, f, sr in (("unrouted", feat, None), ("routed", three, src)):
+            want = _jax_align(f, rois, gate, 8, 10, s, src=sr)
+            got = align.roi_align_gated(_t(f), _t(rois), _t(gate), 8, 10, P, SCALE, s,
+                                        src=None if sr is None else _t(sr))
+            assert got.dtype == torch.float32 and got.shape == want.shape
+            np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=atol, err_msg=f"{name} s={s}")
+            # bfloat16: one bfloat16 step of the float32 result on the rounded features
+            fb = torch.from_numpy(f).bfloat16()
+            want_b = _jax_align(fb.float().numpy(), rois, gate, 8, 10, s, src=sr)
+            got_b = align.roi_align_gated(fb, _t(rois), _t(gate), 8, 10, P, SCALE, s,
+                                          src=None if sr is None else _t(sr))
+            assert got_b.dtype == torch.bfloat16
+            err = np.abs(got_b.float().numpy() - want_b)
+            assert (err <= _bf16_step(want_b) + atol).all(), (name, s, err.max())
+        # the edge rows pool something; the invalid, wholly outside and gate-0 rows nothing
+        assert (np.abs(want[:, [0, 1, 2, 3, 4, 5, 6, 8]]).reshape(2, 8, -1).max(-1) > 0).all()
+        assert not want[:, 9:11].any() and not want[:, 7].any()
+    # ROIAlign (V1): offset 0, sizes floored at 1
+    want = _jax_align(feat, rois, gate, 8, 10, 2, aligned=False)
+    got = align.roi_align_gated(_t(feat), _t(rois), _t(gate), 8, 10, P, SCALE, 2, aligned=False)
+    np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=atol)
+    v2 = align.roi_align_gated(_t(feat), _t(rois), _t(gate), 8, 10, P, SCALE, 2)
+    assert (got - v2).abs().max() > 1e-3  # V1 differs
+
+
+def _check_align_window():
+    """The windowed mode against ``roi_align_pallas`` in interpret mode,
+    times the gate: a 40x48 map at scale 1/4, window 16 (``win_y = win_x =
+    24``), ROIs inside and longer than their window, at the map's edges and
+    overhanging; the long ROIs pool differently from the exact align."""
+    rng = np.random.RandomState(7)
+    h, w, c, scale, win = 40, 48, 8, 0.25, 16
+    feat = rng.randn(1, h, w, c).astype(np.float32)
+    rois = np.array([[[8, 12, 40, 36],  # inside its window
+                      [10, 6, 150, 120],  # longer than its window on both axes
+                      [30, 20, 60, 170],  # longer on y
+                      [100, 100, 190, 158],  # reaches the right and bottom edges
+                      [-20, -16, 30, 40],  # overhangs left and top
+                      [0, 0, 192, 160],  # the whole map
+                      # degenerate, less than a pixel backwards: roi_align_pallas skips
+                      # (and leaves unwritten) a ROI whose extent is -1 or less
+                      [60, 60, 57, 58],
+                      [20, 24, 20, 24]]], np.float32)  # zero area
+    gate = rng.uniform(0.5, 2.0, (1, rois.shape[1])).astype(np.float32)
+    want = np.asarray(roi_align_pallas(jnp.asarray(feat[0]), jnp.asarray(rois[0]), P, scale,
+                                       sampling_ratio=2, win=win, c_tile=c, roi_block=1,
+                                       interpret=True)) * gate[0][:, None, None, None]
+    got = align.roi_align_gated(_t(feat), _t(rois), _t(gate), 0, c, P, scale, 2, window=win)
+    np.testing.assert_allclose(got[0].numpy(), want, rtol=0, atol=1e-5 * np.abs(feat).max())
+    exact = align.roi_align_gated(_t(feat), _t(rois), _t(gate), 0, c, P, scale, 2)
+    differs = np.abs(exact[0].numpy() - want).reshape(len(want), -1).max(-1) > 1e-3
+    assert differs[1] and differs[2] and not differs[0], differs
+
+
+def _check_align_backward():
+    """The plain backward against ``_fused_ad_bwd``; routed by branch, per
+    copy against the unrouted backward."""
+    feat, rois, gate = _align_inputs(4)
+    c_base, c_take, s = 4, 8, 2
+    out = _jax_align(feat, rois, gate, c_base, c_take, s)
+    g = np.random.RandomState(5).randn(*out.shape).astype(np.float32)
+    res = tuple(jnp.asarray(a) for a in (feat, rois, gate, out))
+    want_feat, _, want_gate = jax.jit(
+        lambda res, g: _fused_ad_bwd(c_base, c_take, P, SCALE, s, False, res, g))(res, jnp.asarray(g))
+    got_feat, got_gate = align.roi_align_gated_bwd_plain(_t(feat), _t(rois), _t(gate), _t(out),
+                                                         _t(g), c_base, c_take, P, SCALE, s)
+    np.testing.assert_allclose(got_feat.numpy(), want_feat, rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(got_gate.numpy(), want_gate, rtol=1e-5, atol=1e-5)
+    assert np.abs(want_feat).max() > 0 and (got_gate.numpy()[:, 10] == 0).all()
+    assert not got_feat[..., :c_base].any() and not got_feat[..., c_base + c_take:].any()
+    assert align.roi_align_gated_bwd_plain(_t(feat), _t(rois), _t(gate), None, _t(g), c_base,
+                                           c_take, P, SCALE, s, need_gate=False)[1] is None
+
+    # routed by branch: each copy's cotangent is the unrouted backward of the
+    # ROIs that read it (checked against the JAX package above), on its own
+    feat, rois, gate, src = routed_pool_inputs(3)
+    b = gate.shape[0]
+    g = np.random.RandomState(6).randn(b, gate.shape[1], P, P, c_take).astype(np.float32)
+    got_feat, _ = align.roi_align_gated_bwd_plain(_t(feat), _t(rois), _t(gate), None, _t(g),
+                                                  c_base, c_take, P, SCALE, s, need_gate=False,
+                                                  src=_t(src))
+    for k in range(feat.shape[0]):
+        reads = src == k  # [B, N]: the ROIs of image k % b that read copy k
+        i = k % b
+        want_k, _ = align.roi_align_gated_bwd_plain(
+            _t(feat[k:k + 1]), _t(rois[i:i + 1]),
+            _t(gate[i:i + 1] * reads[i:i + 1]), None, _t(g[i:i + 1]), c_base, c_take, P, SCALE, s,
+            need_gate=False)
+        assert reads.any() and np.abs(want_k.numpy()).max() > 0
+        np.testing.assert_allclose(got_feat[k].numpy(), want_k[0].numpy(), rtol=1e-6, atol=1e-7,
+                                   err_msg=f"copy {k}")
 
 
 def test_wrapper_contract():
@@ -144,3 +313,23 @@ def test_wrapper_contract():
             pytest.fail(f"loop {name} was accepted")
     with pytest.raises(TypeError):
         port.roi_loop_pool_gated(feat, rois, gate, src.float(), 0, 24)
+
+    # the align's wrapper: the same contract; a tiny temporary budget (one ROI
+    # per group) gives the same bits; the windowed mode has no feature backward
+    before = (align.LAUNCHES, align.BWD_LAUNCHES)
+    out = align.roi_align_gated(feat, rois, gate, 0, 24, P, SCALE, 2, src=src)
+    assert torch.equal(out, align.roi_align_gated_plain(feat, rois, gate, 0, 24, P, SCALE, 2,
+                                                        src=src, max_elems=1))
+    align.roi_align_gated_bwd(feat, rois, gate, out, torch.ones_like(out), 0, 24, P, SCALE, 2)
+    assert (align.LAUNCHES, align.BWD_LAUNCHES) == before
+    for name, (f, r, g, c_base) in bad_inputs.items():
+        with pytest.raises(ValueError):
+            align.roi_align_gated(f, r, g, c_base, 24)
+            pytest.fail(f"align {name} was accepted")
+    with pytest.raises(ValueError):
+        align.roi_align_gated(three, rois, gate, 0, 24, P, SCALE, 2, src=routed + 5)
+    with pytest.raises(ValueError):
+        align.roi_align_gated_bwd(feat, rois, gate, None, out[:, :2], 0, 24, P, SCALE, 2)
+    leaf = feat.clone().requires_grad_(True)
+    with pytest.raises(NotImplementedError):
+        align.RoIAlignGatedFunction.apply(leaf, rois, gate, 0, 24, P, SCALE, 2, True, None, 32)

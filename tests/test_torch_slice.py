@@ -7,12 +7,15 @@ reference, so no Pallas interpret run is involved.
 Tolerances: proposals, probabilities and boxes rtol 1e-4 with box atol 1e-3;
 validity masks and classes exactly. The stage-wise test feeds the port's
 heads the JAX backbone features, so a discrete top-k or NMS flip shows up at
-the stage that made it instead of being loosened away."""
+the stage that made it instead of being loosened away; it also holds the ROI
+heads with the ``ROIAlignV2`` pooler to the JAX package's."""
 
 import numpy as np
 import torch
 
-from torch_port_common import embeddings, jax_stages, make_batch, torch_model_from_jax
+from torch_port_common import (
+    embeddings, jax_reference, jax_stages, make_batch, torch_model_from_jax,
+)
 from wsovod_torch.engine.evaluator import inference_on_dataset
 from wsovod_torch.structures.instances import Instances
 
@@ -60,7 +63,11 @@ def _check_forward(seed):
 
 def test_slice_stagewise():
     """The RPN on the JAX backbone features, then the ROI heads on the JAX
-    proposals and data-aware vector."""
+    proposals and data-aware vector; then the ROI heads with the
+    ``ROIAlignV2`` pooler (the config tree's default; ``POOLER_SAMPLING_RATIO``
+    0, which both packages take as 2 samples per bin axis) against the JAX
+    package's, which pools with the jnp ``roi_align`` on the CPU, and the
+    entry point with it over two batches."""
     batch = make_batch(0)
     feats, rpn, daf, (det, probs, boxes, props) = jax_stages(0)
     tm = torch_model_from_jax()
@@ -83,6 +90,54 @@ def test_slice_stagewise():
     np.testing.assert_array_equal(tdet.valid.numpy(), det.valid)
     np.testing.assert_array_equal(tdet.classes.numpy()[det.valid], det.classes[det.valid])
     np.testing.assert_allclose(tdet.scores.numpy()[det.valid], det.scores[det.valid], rtol=RTOL)
+    _check_align_heads(feats, daf, props)
+
+
+def _check_align_heads(feats, daf, props):
+    """The ROI heads with ``ROIAlignV2`` on the JAX package's features,
+    proposals and data-aware vector (the pooler changes nothing before the
+    ROI heads), against its ``roi_heads.inference``; then
+    ``inference_on_dataset`` runs the align model over two batches."""
+    import jax
+    import jax.numpy as jnp
+
+    from wsovod_tpu.structures.instances import Instances as JaxInstances
+
+    batch = make_batch(0)
+    jm, params = jax_reference(pooler="ROIAlignV2")
+
+    def heads(m, f, boxes, logits, valid, sizes, d, e):
+        p = JaxInstances(valid, proposal_boxes=boxes, objectness_logits=logits)
+        return m.roi_heads.inference(f, p, sizes, data_aware_features=d, embeddings=e)
+
+    args = (feats, *props, batch["image_sizes"], daf, embeddings())
+    det, probs, boxes = jax.tree_util.tree_map(np.asarray, jax.jit(
+        lambda p, *a: jm.apply(p, *a, method=heads))(params, *jax.tree_util.tree_map(jnp.asarray,
+                                                                                  args)))
+    tm = torch_model_from_jax(pooler="ROIAlignV2")
+    assert (tm.roi_heads.pooler.pooler_type, tm.roi_heads.pooler.sampling_ratio) == ("ROIAlignV2", 2)
+    tprops = Instances(torch.from_numpy(props[2]), proposal_boxes=torch.from_numpy(props[0]),
+                       objectness_logits=torch.from_numpy(props[1]))
+    with torch.inference_mode():
+        tdet, tprobs, tboxes = tm.roi_heads.inference(
+            {k: torch.from_numpy(v) for k, v in feats.items()}, tprops,
+            torch.from_numpy(batch["image_sizes"]), data_aware_features=torch.from_numpy(daf),
+            embeddings=torch.from_numpy(embeddings()))
+    np.testing.assert_allclose(tprobs.numpy(), probs, rtol=RTOL, atol=1e-6)
+    np.testing.assert_allclose(tboxes.numpy(), boxes, rtol=RTOL, atol=BOX_ATOL)
+    np.testing.assert_array_equal(tdet.valid.numpy(), det.valid)
+    np.testing.assert_array_equal(tdet.classes.numpy()[det.valid], det.classes[det.valid])
+    np.testing.assert_allclose(tdet.scores.numpy()[det.valid], det.scores[det.valid], rtol=RTOL)
+
+    def loader():
+        for seed in (0, 1):
+            b = make_batch(seed)
+            b["image_id"] = [f"{seed}_{i}" for i in range(2)]
+            b["orig_size"] = b["image_sizes"]
+            yield b
+
+    got = inference_on_dataset(tm, loader(), _Recorder(), embeddings=torch.from_numpy(embeddings()))
+    assert len(got) == 4 and all(len(s) and np.isfinite(s).all() for _, s, _ in got.values())
 
 
 class _Recorder:

@@ -9,8 +9,10 @@
 * One train step of the tiny R18 config for ``FREEZE_AT`` 5 and 4: the
   losses, every trainable parameter's gradient (res5's through the pool
   backward at 4), and the parameters after two SGD updates (warmup, bias LR
-  factor, backbone multiplier, weight decay), dropout off on both sides;
-  clipping and ``ITER_SIZE`` accumulation on a toy model.
+  factor, backbone multiplier, weight decay), dropout off on both sides; the
+  same with the ``ROIAlignV2`` pooler at ``FREEZE_AT`` 4 (res5's gradient
+  through the align's backward); clipping and ``ITER_SIZE`` accumulation on
+  a toy model.
 * The same for the tiny MRRP R18 config at ``FREEZE_AT`` 4: three branches,
   the three-row ROILoopPool, ContextLocNet's object miner, res5's gradient
   through the loop pool's backward; the loop pool saving nothing at
@@ -33,6 +35,8 @@ the ops exact where they are discrete (labels, masks, indices) and 1e-5
 Four test items on purpose: many small items queued behind the JAX
 package's heavy tests have crashed XLA:CPU (ROADMAP.md, host facts).
 """
+
+import functools
 
 import flax.linen
 import jax
@@ -68,23 +72,27 @@ from wsovod_torch.solver.build import build_optimizer
 from wsovod_torch.utils.weight_import import state_dict_from_jax
 
 TOL = dict(rtol=1e-5, atol=1e-5)
+# the train steps' proposals per image: the RPN's post-NMS top-k and the SAM boxes
+TRAIN_TOPK, TRAIN_SAM = 8, 6
 
 
 def _t(x):
     return torch.from_numpy(np.array(x))
 
 
-def _draws(key, n):
-    """The JAX subsampler's uniform draws for one ``key``: (positives,
-    negatives), as ``subsample_labels`` splits it."""
-    kp, kn = jax.random.split(key)
-    return np.asarray(jax.random.uniform(kp, (n,))), np.asarray(jax.random.uniform(kn, (n,)))
+@functools.partial(jax.jit, static_argnums=(1, 2))
+def _batched_draw_arrays(key, b, n):
+    """``[B, n]`` draws of a vmapped subsampler over ``split(key, b)``: per
+    image the positives' and negatives' uniforms, as ``subsample_labels``
+    splits its key. One compiled program per shape (the same bits as the
+    draws made op by op)."""
+    per = [jax.random.split(k) for k in jax.random.split(key, b)]
+    return (jnp.stack([jax.random.uniform(kp, (n,)) for kp, _ in per]),
+            jnp.stack([jax.random.uniform(kn, (n,)) for _, kn in per]))
 
 
 def _batched_draws(key, b, n):
-    """``[B, n]`` draws of a vmapped subsampler over ``split(key, b)``."""
-    per = [_draws(k, n) for k in jax.random.split(key, b)]
-    return _t(np.stack([p for p, _ in per])), _t(np.stack([q for _, q in per]))
+    return tuple(_t(x) for x in _batched_draw_arrays(key, b, n))
 
 
 class _Replay:
@@ -291,14 +299,15 @@ def _check_pool_backward():
 
 
 # ------------------------------------------------------------ (b) a step
-def _train_cfg(cfg, freeze_at, yaml=TINY_YAML, test_branch_idx=None):
-    """The tiny config (``tiny_cfg``) for training: train top-k as the test
-    top-k, a short warmup from 0.5 so the two updates use different rates,
-    the backbone multiplier off 1, one image per update."""
-    cfg = tiny_cfg(cfg, yaml, test_branch_idx)
+def _train_cfg(cfg, freeze_at, yaml=TINY_YAML, test_branch_idx=None, pooler=None):
+    """The tiny config (``tiny_cfg``) for training: the RPN's train top-k 32
+    before NMS and ``TRAIN_TOPK`` after, a short warmup from 0.5 so the two
+    updates use different rates, the backbone multiplier off 1, one image
+    per update."""
+    cfg = tiny_cfg(cfg, yaml, test_branch_idx, pooler)
     cfg.MODEL.BACKBONE.FREEZE_AT = freeze_at
-    cfg.MODEL.RPN.PRE_NMS_TOPK_TRAIN = 64
-    cfg.MODEL.RPN.POST_NMS_TOPK_TRAIN = 16
+    cfg.MODEL.RPN.PRE_NMS_TOPK_TRAIN = 32
+    cfg.MODEL.RPN.POST_NMS_TOPK_TRAIN = TRAIN_TOPK
     cfg.SOLVER.MAX_ITER = 10
     cfg.SOLVER.BASE_LR = 0.02
     cfg.SOLVER.WARMUP_ITERS = 2
@@ -319,15 +328,32 @@ class _NoDropout(flax.linen.Module):
         return x
 
 
+@functools.partial(jax.jit, static_argnums=(1, 2, 3))
+def _model_draw_arrays(model_rng, b, p, r):
+    rng, _, rng_roi = jax.random.split(model_rng, 3)
+    _, krng = jax.random.split(rng_roi)
+    _, rng_rpn = jax.random.split(rng)
+    return (*_batched_draw_arrays(krng, b, p), *_batched_draw_arrays(rng_rpn, b, r))
+
+
 def _model_draws(model_rng, b, p, r):
     """The uniform draws of one JAX train forward, in the order the port
     asks for them: the ROI heads' proposal sampling (stage 0), then the
     RPN's anchor sampling (``meta_arch.py`` and ``roi_heads.py`` key
     splits)."""
-    rng, _, rng_roi = jax.random.split(model_rng, 3)
-    _, krng = jax.random.split(rng_roi)
-    _, rng_rpn = jax.random.split(rng)
-    return [*_batched_draws(krng, b, p), *_batched_draws(rng_rpn, b, r)]
+    return [_t(x) for x in _model_draw_arrays(model_rng, b, p, r)]
+
+
+def _grads_and_feature(jmodel, loss_fn, images, name):
+    """``jit((p, it) -> (value_and_grad(loss_fn)(p, it), backbone feature
+    name at p))``: the JAX package's gradients and the backbone output the
+    port's second pass takes, in one compiled program."""
+
+    def fn(p, it):
+        feats = jmodel.apply(p, images, method=lambda m, x: m.backbone(m._normalize(x), train=True))
+        return jax.value_and_grad(loss_fn, has_aux=True)(p, it), feats[name]
+
+    return jax.jit(fn)
 
 
 def _grads_by_name(model):
@@ -350,17 +376,25 @@ def test_train_step_matches_jax(monkeypatch):
     ``FREEZE_AT`` 5 (heads only) and 4 (res5 trains through the pool
     backward). One compiled JAX program serves both: its backbone is not
     stopped, and at 5 its backbone gradients are simply not compared (the
-    optimizer's frozen label zeroes their updates). Then gradient clipping
-    and ``ITER_SIZE`` accumulation against optax."""
+    optimizer's frozen label zeroes their updates). The same with the
+    ``ROIAlignV2`` pooler at ``FREEZE_AT`` 4 (res5 trains through the
+    align's backward, ``roi_align_gated_bwd_plain`` here). Then gradient
+    clipping and ``ITER_SIZE`` accumulation against optax."""
+    _check_train_step(monkeypatch, None, (5, 4))
+    _check_train_step(monkeypatch, "ROIAlignV2", (4,))
+    _check_clipping_and_accumulation()
+
+
+def _check_train_step(monkeypatch, pooler, freeze_ats):
     from wsovod_tpu.config import get_cfg as jax_get_cfg
     from wsovod_tpu.models import build_model as jax_build_model
     from wsovod_tpu.solver.build import build_optimizer as jax_build_optimizer
 
     monkeypatch.setattr(flax.linen, "Dropout", _NoDropout)
-    jmodel = jax_build_model(_train_cfg(jax_get_cfg(), 4))
+    jmodel = jax_build_model(_train_cfg(jax_get_cfg(), 4, pooler=pooler))
     params0 = jax.tree_util.tree_map(jnp.asarray, jax_reference()[1])
     emb = embeddings()
-    batch = make_batch(2, gt=True)
+    batch = make_batch(2, s=TRAIN_SAM, gt=True)
     jbatch = {k: jnp.asarray(v) for k, v in batch.items()}
     model_rng = jax.random.PRNGKey(5)
 
@@ -370,20 +404,21 @@ def test_train_step_matches_jax(monkeypatch):
         return sum(losses.values()), losses
 
     grad_fn = jax.jit(jax.value_and_grad(loss_fn, has_aux=True))
-    (_, jlosses), jgrads = grad_fn(params0, jnp.asarray(3))
-    jgrads = {k: v.numpy() for k, v in state_dict_from_jax(jgrads).items()}
+    (_, jlosses), jgrads0 = grad_fn(params0, jnp.asarray(3))
+    jgrads = {k: v.numpy() for k, v in state_dict_from_jax(jgrads0).items()}
     init = {k: v.numpy() for k, v in state_dict_from_jax(params0).items()}
     tbatch = {k: _t(v) for k, v in batch.items()}
-    p = 16 + batch["sam_valid"].shape[1]
+    p = TRAIN_TOPK + batch["sam_valid"].shape[1]
     r = 8 * 8 * 18  # res5 of a 64-px image at stride 8, 18 anchors
 
-    for freeze_at in (5, 4):
-        model = build_model(_train_cfg(get_cfg(), freeze_at), device="cpu", seed=None)
+    for freeze_at in freeze_ats:
+        cfg = _train_cfg(get_cfg(), freeze_at, pooler=pooler)
+        model = build_model(cfg, device="cpu", seed=None)
+        assert model.roi_heads.pooler.pooler_type == (pooler or "ROIPool")
         model.load_state_dict(state_dict_from_jax(params0), strict=True)
         model.train()
         model.roi_heads.box_head.dropout = 0.0
-        step = TrainStep(model, build_optimizer(_train_cfg(get_cfg(), freeze_at), model),
-                         _train_cfg(get_cfg(), freeze_at))
+        step = TrainStep(model, build_optimizer(cfg, model), cfg)
         step.step = 3  # as after three earlier iterations: the RPN ramp is 0.3
 
         losses = model.forward_train(tbatch, _t(emb), iteration=step.step,
@@ -404,7 +439,7 @@ def test_train_step_matches_jax(monkeypatch):
         step.update()
 
         # two updates on the JAX side, then the port's second
-        jcfg = _train_cfg(jax_get_cfg(), freeze_at)
+        jcfg = _train_cfg(jax_get_cfg(), freeze_at, pooler=pooler)
         tx = jax_build_optimizer(jcfg, params0["params"])
 
         @jax.jit
@@ -413,9 +448,10 @@ def test_train_step_matches_jax(monkeypatch):
             return optax.apply_updates(p, updates), state
 
         opt_state = jax.jit(tx.init)(params0["params"])
-        params = params0
+        params, g = params0, jgrads0
         for it in (3, 4):
-            _, g = grad_fn(params, jnp.asarray(it))
+            if it > 3:
+                _, g = grad_fn(params, jnp.asarray(it))
             new, opt_state = sgd(params["params"], opt_state, g["params"])
             params = {"params": new}
         step.backward(model.forward_train(tbatch, _t(emb), iteration=step.step, uniforms=_Replay(
@@ -429,7 +465,6 @@ def test_train_step_matches_jax(monkeypatch):
             # the miner's det bias has a zero gradient and no decay: it stays
             stays = frozen or n == "roi_heads.object_miner.det.bias"
             assert (v == init[n]).all() == stays, n
-    _check_clipping_and_accumulation()
 
 
 def test_mrrp_train_step_matches_jax(monkeypatch):
@@ -459,7 +494,7 @@ def test_mrrp_train_step_matches_jax(monkeypatch):
     jmodel = jax_build_model(_train_cfg(jax_get_cfg(), 4, MRRP_YAML))
     params0 = jax.tree_util.tree_map(jnp.asarray, jax_reference(MRRP_YAML, -1)[1])
     emb = embeddings()
-    batch = make_batch(2, gt=True)
+    batch = make_batch(2, s=TRAIN_SAM, gt=True)
     jbatch = {k: jnp.asarray(v) for k, v in batch.items()}
     model_rng = jax.random.PRNGKey(5)
 
@@ -468,18 +503,16 @@ def test_mrrp_train_step_matches_jax(monkeypatch):
                               embeddings=jnp.asarray(emb))
         return sum(losses.values()), losses
 
-    grad_fn = jax.jit(jax.value_and_grad(loss_fn, has_aux=True))
-    (_, jlosses), jgrads0 = grad_fn(params0, jnp.asarray(3))
+    grad_fn = _grads_and_feature(jmodel, loss_fn, jbatch["images"], "res5")
+    ((_, jlosses), jgrads0), jax_res5 = grad_fn(params0, jnp.asarray(3))
     jgrads = {k: v.numpy() for k, v in state_dict_from_jax(jgrads0).items()}
-    jax_res5 = np.asarray(jax.jit(lambda p, x: jmodel.apply(
-        p, x, method=lambda m, x: m.backbone(m._normalize(x), train=True)))(
-            params0, jbatch["images"])["res5"])
+    jax_res5 = np.asarray(jax_res5)
     n_sam = batch["sam_valid"].shape[1]
     sam_branch = 1000 * np.asarray(jax.random.randint(jax.random.split(model_rng, 3)[1],
                                                       (2, n_sam), 0, 3))
     assert len(np.unique(sam_branch)) == 3
     tbatch = {k: _t(v) for k, v in batch.items()}
-    p, r = 16 + n_sam, 3 * 8 * 8 * 6  # three anchor levels of 6 on an 8x8 res5
+    p, r = TRAIN_TOPK + n_sam, 3 * 8 * 8 * 6  # three anchor levels of 6 on an 8x8 res5
 
     def port_model(freeze_at, test_branch_idx=None):
         cfg = _train_cfg(get_cfg(), freeze_at, MRRP_YAML, test_branch_idx)
@@ -556,7 +589,7 @@ def test_mrrp_train_step_matches_jax(monkeypatch):
     params, g = params0, jgrads0
     for it in (3, 4):
         if it > 3:
-            _, g = grad_fn(params, jnp.asarray(it))
+            (_, g), _ = grad_fn(params, jnp.asarray(it))
         new, opt_state = sgd(params["params"], opt_state, g["params"])
         params = {"params": new}
     step.backward(forward(model, step))
@@ -601,7 +634,7 @@ def _check_mrrp_vgg_train_step(monkeypatch):
     jmodel = jax_build_model(_train_cfg(jax_get_cfg(), 4, MRRP_VGG_YAML))
     params0 = jax.tree_util.tree_map(jnp.asarray, jax_reference(MRRP_VGG_YAML, -1)[1])
     emb = embeddings()
-    batch = make_batch(2, gt=True)
+    batch = make_batch(2, s=TRAIN_SAM, gt=True)
     jbatch = {k: jnp.asarray(v) for k, v in batch.items()}
     model_rng = jax.random.PRNGKey(5)
 
@@ -610,21 +643,15 @@ def _check_mrrp_vgg_train_step(monkeypatch):
                               embeddings=jnp.asarray(emb))
         return sum(losses.values()), losses
 
-    grad_fn = jax.jit(jax.value_and_grad(loss_fn, has_aux=True))
-    (_, jlosses), jgrads0 = grad_fn(params0, jnp.asarray(3))
+    grad_fn = _grads_and_feature(jmodel, loss_fn, jbatch["images"], "plain5")
+    ((_, jlosses), jgrads0), jax_plain5 = grad_fn(params0, jnp.asarray(3))
     jgrads = {k: v.numpy() for k, v in state_dict_from_jax(jgrads0).items()}
-    backbone_fn = jax.jit(lambda p, x: jmodel.apply(
-        p, x, method=lambda m, x: m.backbone(m._normalize(x), train=True)))
-
-    def plain5_fn(p, x):
-        return np.asarray(backbone_fn(p, x)["plain5"])
-
-    jax_plain5 = plain5_fn(params0, jbatch["images"])
+    jax_plain5 = np.asarray(jax_plain5)
     n_sam = batch["sam_valid"].shape[1]
     sam_branch = 1000 * np.asarray(jax.random.randint(jax.random.split(model_rng, 3)[1],
                                                       (2, n_sam), 0, 3))
     tbatch = {k: _t(v) for k, v in batch.items()}
-    p, r = 16 + n_sam, 3 * 7 * 7 * 6  # three anchor levels of 6 on a 7x7 plain5
+    p, r = TRAIN_TOPK + n_sam, 3 * 7 * 7 * 6  # three anchor levels of 6 on a 7x7 plain5
     cfg = _train_cfg(get_cfg(), 4, MRRP_VGG_YAML)
 
     def port_model():
@@ -690,8 +717,8 @@ def _check_mrrp_vgg_train_step(monkeypatch):
     params, g, jax_plain5 = params0, jgrads0, [jax_plain5]
     for it in (3, 4):
         if it > 3:
-            _, g = grad_fn(params, jnp.asarray(it))
-            jax_plain5.append(plain5_fn(params, jbatch["images"]))
+            (_, g), plain5 = grad_fn(params, jnp.asarray(it))
+            jax_plain5.append(np.asarray(plain5))
         new, opt_state = sgd(params["params"], opt_state, g["params"])
         params = {"params": new}
 
@@ -766,9 +793,9 @@ def test_trainer_checkpoint_round_trip(tmp_path):
     checkpoint restores the parameters, the momentum, the counts and the
     generator bit for bit, and the resumed trainer's next iteration equals
     the original's; a checkpoint saved inside an accumulation carries the
-    gradients; ``MODEL.WEIGHTS`` loads a saved state dict. A present SAM
-    checkpoint and two training-only keys the port lacks are refused by
-    name."""
+    gradients; ``MODEL.WEIGHTS`` loads a saved state dict. The ROIAlignV2
+    pooler trains; its windowed mode is refused while res5 trains. A present SAM checkpoint and two
+    training-only keys the port lacks are refused by name."""
     cfg = _train_cfg(get_cfg(), 5)
     cfg.SOLVER.MAX_ITER = 2
     cfg.SOLVER.REFERENCE_WORLD_SIZE = 2
@@ -810,6 +837,22 @@ def test_trainer_checkpoint_round_trip(tmp_path):
     assert not fresh.resumed and fresh.step.step == 0
     for p, q in zip(trainer.model.parameters(), fresh.model.parameters()):
         assert torch.equal(p, q)
+
+    # the ROIAlignV2 pooler trains (the align's backward into res5 is held
+    # to the JAX package in test_train_step_matches_jax); its windowed mode
+    # is refused by name while res5 trains
+    align = _train_cfg(get_cfg(), 5, pooler="ROIAlignV2")
+    align.SOLVER.MAX_ITER, align.SOLVER.REFERENCE_WORLD_SIZE = 1, 1
+    align.OUTPUT_DIR, align.MODEL.WEIGHTS = str(tmp_path / "align"), ""
+    trainer = WSOVODTrainer(align, _loader(), embeddings=emb, device="cpu")
+    fc1 = trainer.model.roi_heads.box_head.fc1.weight.detach().clone()
+    trainer.train()
+    assert trainer.step.updates == 1
+    assert not torch.equal(fc1, trainer.model.roi_heads.box_head.fc1.weight)
+    align.MODEL.BACKBONE.FREEZE_AT = 4
+    align.TPU.ROI_ALIGN_KERNEL = "pallas_approx"
+    with pytest.raises(NotImplementedError, match=r"TPU\.ROI_ALIGN_KERNEL"):
+        WSOVODTrainer(align, _loader(), embeddings=emb, device="cpu")
 
     cfg.WSOVOD.BBOX_REFINE.MODEL_CHECKPOINT = str(tmp_path / "sam.pth")
     (tmp_path / "sam.pth").write_bytes(b"")

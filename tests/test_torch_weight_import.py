@@ -9,7 +9,8 @@
 * the port's own config tree equals the JAX package's apart from the four
   port defaults, before and after merging the YAMLs; the keys it refuses by
   name; feature names the backbone does not give raise a ``ValueError``
-  naming the key and the backbone's features.
+  naming the key and the backbone's features; the ROIAlign poolers it
+  admits, and the windowed align it refuses for training.
 """
 
 import os
@@ -25,6 +26,7 @@ from torch_port_common import (
 )
 from wsovod_tpu.utils.weight_import import import_wsovod_model
 from wsovod_torch import check_supported, get_cfg
+from wsovod_torch.config import check_train_supported
 from wsovod_torch.models import build_model
 from wsovod_torch.utils.weight_import import state_dict_from_jax
 
@@ -56,6 +58,11 @@ def _check_round_trip_through_reference_importer():
 
     model.load_state_dict(back, strict=True)
     for k, v in model.state_dict().items():
+        np.testing.assert_array_equal(v.numpy(), blobs[k], err_msg=k)
+    # the ROIAlignV2 pooler has no parameters: the same tree loads into its model
+    align = build_model(tiny_cfg(get_cfg(), pooler="ROIAlignV2"), device="cpu", seed=None)
+    align.load_state_dict(back, strict=True)
+    for k, v in align.state_dict().items():
         np.testing.assert_array_equal(v.numpy(), blobs[k], err_msg=k)
 
 
@@ -138,6 +145,29 @@ def test_port_config_and_jax_free_import():
         with pytest.raises(ValueError, match=key.replace(".", r"\.") + ".*features are \\[" + features):
             check_supported(cfg)
         assert cfg.MODEL.RPN.IN_FEATURES == ["res5"]
+    _check_admitted_poolers()
+
+
+def _check_admitted_poolers():
+    """``ROIAlignV2`` and ``ROIAlign`` on the plain, MRRP and MRRP VGG16
+    configs: built, and admitted for training with every
+    ``TPU.ROI_ALIGN_KERNEL``, except the windowed one (``pallas_approx``)
+    while the pooled stage trains, which ``check_train_supported`` refuses
+    by name (its TPU kernel has no VJP)."""
+    for yaml in (TINY_YAML, MRRP_YAML, MRRP_VGG_YAML):
+        for pooler in ("ROIAlignV2", "ROIAlign"):
+            cfg = tiny_cfg(get_cfg(), yaml, pooler=pooler)
+            model = build_model(cfg, device="cpu")
+            assert model.roi_heads.pooler.aligned == (pooler == "ROIAlignV2")
+            for kernel in ("fused", "pallas", "gather", "pallas_approx"):
+                cfg.TPU.ROI_ALIGN_KERNEL = kernel
+                for freeze_at in (5, 4):
+                    cfg.MODEL.BACKBONE.FREEZE_AT = freeze_at
+                    if kernel == "pallas_approx" and pooler == "ROIAlignV2" and freeze_at == 4:
+                        with pytest.raises(NotImplementedError, match=r"TPU\.ROI_ALIGN_KERNEL"):
+                            check_train_supported(cfg)
+                    else:
+                        check_train_supported(cfg)
 
 
 def _set(cfg, key, value):
@@ -206,15 +236,15 @@ _UNPORTED = [
     ("TPU.DAN_FC1_QUANT", "int8"),
     ("TPU.RPN_CONV_QUANT", "int8"),
     ("TPU.BACKBONE_CONV_QUANT", "int8"),
-    ("MODEL.ROI_BOX_HEAD.POOLER_TYPE", "ROIAlignV2"),
+    ("MODEL.ROI_BOX_HEAD.POOLER_TYPE", "ROIAlignRotated"),
     ("MODEL.META_ARCHITECTURE", "GeneralizedRCNN_WSOVOD_MixedDatasets"),
     ("MODEL.BACKBONE.NAME", "build_swin_backbone"),
     ("MODEL.BACKBONE.NAME", "build_swin_fpn_backbone"),
 ]
-# refused on the MRRP config (ROIPool and ROILoopPool are ported, with or
-# without MRRP)
+# refused on the MRRP config (ROIPool, ROILoopPool, ROIAlignV2 and ROIAlign
+# are ported, with or without MRRP, on one level)
 _UNPORTED_MRRP = [
-    ("MODEL.ROI_BOX_HEAD.POOLER_TYPE", "ROIAlignV2"),
+    ("MODEL.ROI_HEADS.IN_FEATURES", ["res4", "res5"]),
     ("MODEL.MRRP.MRRP_STAGE", "res4"),
     ("MODEL.MRRP.MRRP_STAGE", "plain5"),
     ("MODEL.MRRP.TEST_BRANCH_IDX", 3),
@@ -225,5 +255,5 @@ _UNPORTED_MRRP_VGG = [
     ("MODEL.VGG.DEPTH", 19),
     ("MODEL.MRRP.MRRP_STAGE", "plain4"),
     ("MODEL.MRRP.MRRP_STAGE", "res5"),
-    ("MODEL.ROI_BOX_HEAD.POOLER_TYPE", "ROIAlignV2"),
+    ("MODEL.ROI_HEADS.IN_FEATURES", ["plain4", "plain5"]),
 ]

@@ -23,17 +23,20 @@ NUM_CLASSES = 5
 WEIGHT_DIM = 16
 
 
-def tiny_cfg(cfg, yaml: str = TINY_YAML, test_branch_idx=None):
+def tiny_cfg(cfg, yaml: str = TINY_YAML, test_branch_idx=None, pooler=None):
     """The golden-forward overrides (``tests/test_golden_forward.py``) on
     an R18 DC5 config (default the plain one; ``MRRP_YAML`` for MRRP, with
     ``test_branch_idx`` if given) or a VGG16 one (``VGG_YAML``,
     ``MRRP_VGG_YAML``; their RPN reads ``plain5``, which the YAMLs leave at
-    the base's ``res5``), float32, no int8, no TTA."""
+    the base's ``res5``), float32, no int8, no TTA; ``pooler`` sets
+    ``POOLER_TYPE``."""
     cfg.merge_from_file(yaml)
     if "vgg" in cfg.MODEL.BACKBONE.NAME:
         cfg.MODEL.RPN.IN_FEATURES = ["plain5"]
     if test_branch_idx is not None:
         cfg.MODEL.MRRP.TEST_BRANCH_IDX = test_branch_idx
+    if pooler is not None:
+        cfg.MODEL.ROI_BOX_HEAD.POOLER_TYPE = pooler
     cfg.MODEL.ROI_HEADS.NUM_CLASSES = NUM_CLASSES
     cfg.MODEL.RPN.PRE_NMS_TOPK_TEST = 64
     cfg.MODEL.RPN.POST_NMS_TOPK_TEST = 16
@@ -144,19 +147,23 @@ def random_params(shapes, seed: int = 0):
 
 
 @functools.lru_cache(maxsize=None)
-def jax_reference(yaml: str = TINY_YAML, test_branch_idx=None):
-    """``(model, params)`` of the JAX package on the tiny config (``yaml``
-    and ``test_branch_idx`` as ``tiny_cfg``), with ``random_params`` on the
-    parameter tree of a training-mode ``init`` (the object miner's
-    parameters exist only there; they come last, so the other leaves' draws
-    are those of the inference tree)."""
+def jax_reference(yaml: str = TINY_YAML, test_branch_idx=None, pooler=None):
+    """``(model, params)`` of the JAX package on the tiny config (``yaml``,
+    ``test_branch_idx`` and ``pooler`` as ``tiny_cfg``), with
+    ``random_params`` on the parameter tree of a training-mode ``init``
+    (the object miner's parameters exist only there; they come last, so the
+    other leaves' draws are those of the inference tree). The test branch
+    index and the pooler own no parameters (the trees are the same): with
+    either given, the parameters are those of ``jax_reference(yaml)``."""
     import jax
     import jax.numpy as jnp
 
     from wsovod_tpu.config import get_cfg
     from wsovod_tpu.models import build_model
 
-    model = build_model(tiny_cfg(get_cfg(), yaml, test_branch_idx))
+    model = build_model(tiny_cfg(get_cfg(), yaml, test_branch_idx, pooler))
+    if test_branch_idx is not None or pooler is not None:
+        return model, jax_reference(yaml)[1]
     batch = {k: jnp.asarray(v) for k, v in make_batch(gt=True).items()}
     emb = jnp.asarray(embeddings())
     shapes = jax.eval_shape(
@@ -168,8 +175,8 @@ def jax_reference(yaml: str = TINY_YAML, test_branch_idx=None):
 
 
 @functools.lru_cache(maxsize=None)
-def jax_stages(seed: int, yaml: str = TINY_YAML, test_branch_idx=None):
-    """The JAX model (``jax_reference(yaml, test_branch_idx)``) on
+def jax_stages(seed: int, yaml: str = TINY_YAML, test_branch_idx=None, pooler=None):
+    """The JAX model (``jax_reference(yaml, test_branch_idx, pooler)``) on
     ``make_batch(seed)``, as numpy: ``(features, rpn proposals, data-aware
     vector, forward)`` where ``forward`` is ``model.apply(..., train=False,
     return_proposals=True)``'s ``(det, probs, boxes, (proposal_boxes,
@@ -178,17 +185,18 @@ def jax_stages(seed: int, yaml: str = TINY_YAML, test_branch_idx=None):
     import jax
     import jax.numpy as jnp
 
-    model, params = jax_reference(yaml, test_branch_idx)
+    model, params = jax_reference(yaml, test_branch_idx, pooler)
     batch = {k: jnp.asarray(v) for k, v in make_batch(seed).items()}
-    return jax.tree_util.tree_map(np.array, _jax_stage_fn(yaml, test_branch_idx)(params, batch))
+    return jax.tree_util.tree_map(np.array,
+                                  _jax_stage_fn(yaml, test_branch_idx, pooler)(params, batch))
 
 
 @functools.lru_cache(maxsize=None)
-def _jax_stage_fn(yaml: str, test_branch_idx):
+def _jax_stage_fn(yaml: str, test_branch_idx, pooler):
     import jax
     import jax.numpy as jnp
 
-    model, _ = jax_reference(yaml, test_branch_idx)
+    model, _ = jax_reference(yaml, test_branch_idx, pooler)
     emb = jnp.asarray(embeddings())
 
     def stages(m, b):
@@ -206,13 +214,14 @@ def _jax_stage_fn(yaml: str, test_branch_idx):
     return jax.jit(lambda p, b: model.apply(p, b, method=stages))
 
 
-def torch_model_from_jax(yaml: str = TINY_YAML, test_branch_idx=None):
+def torch_model_from_jax(yaml: str = TINY_YAML, test_branch_idx=None, pooler=None):
     """The port's model on the CPU with the JAX reference's parameters."""
     from wsovod_torch import get_cfg
     from wsovod_torch.models import build_model
     from wsovod_torch.utils.weight_import import state_dict_from_jax
 
-    _, params = jax_reference(yaml, test_branch_idx)
-    model = build_model(tiny_cfg(get_cfg(), yaml, test_branch_idx), device="cpu", seed=None)
+    _, params = jax_reference(yaml)
+    model = build_model(tiny_cfg(get_cfg(), yaml, test_branch_idx, pooler), device="cpu",
+                        seed=None)
     model.load_state_dict(state_dict_from_jax(params), strict=True)
     return model

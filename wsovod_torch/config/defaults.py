@@ -287,7 +287,8 @@ def get_cfg() -> CN:
     # ------------------------------------------------------- TPU-specific
     # Keys of the JAX package's TPU paths, kept so that every YAML merges
     # into the same tree in both packages. The port reads COMPUTE_DTYPE and
-    # refuses the int8 paths (check_supported); the others have no effect.
+    # ROI_ALIGN_KERNEL and refuses the int8 paths (check_supported); the
+    # others have no effect.
     _C.TPU = CN()
     _C.TPU.MESH_SHAPE = [-1]
     _C.TPU.MESH_AXES = ["data"]
@@ -327,11 +328,13 @@ def check_supported(cfg: CN) -> None:
     ``check_train_supported``: the reference ignores them at inference too.
 
     The backbones are the WSR ResNet and VGG16 (``build_vgg_backbone``,
-    ``build_mrrp_vgg_backbone``). MRRP is ported at the backbone's last
-    stage (res5 or plain5), with the ``ROIPool`` or the ``ROILoopPool``
-    pooler routed by branch, with all branches at test (``TEST_BRANCH_IDX =
-    -1``) or one (``>= 0``). ``ROILoopPool`` also runs without MRRP; then
-    each ROI pools from its own image.
+    ``build_mrrp_vgg_backbone``). The poolers are ``ROIPool``,
+    ``ROILoopPool``, ``ROIAlignV2`` and ``ROIAlign``, on one level (every
+    ``TPU.ROI_ALIGN_KERNEL``: ``pallas_approx`` is the windowed align, any
+    other the exact one). MRRP is ported at the backbone's last stage (res5
+    or plain5), with any of them routed by branch, with all branches at test
+    (``TEST_BRANCH_IDX = -1``) or one (``>= 0``). ``ROILoopPool`` also runs
+    without MRRP; then each ROI pools from its own image.
 
     ``MODEL.RPN.IN_FEATURES`` and ``MODEL.ROI_HEADS.IN_FEATURES`` must name
     features the backbone gives: a ``ValueError`` names the key and the
@@ -350,7 +353,7 @@ def check_supported(cfg: CN) -> None:
          m.BACKBONE.NAME in _RESNET_BACKBONES + _VGG_BACKBONES, "Swin and other backbones"),
         ("MODEL.VGG.DEPTH", m.VGG.DEPTH, not vgg or m.VGG.DEPTH == 16, "VGG other than VGG16"),
         ("MODEL.ROI_BOX_HEAD.POOLER_TYPE", pooler,
-         pooler in ("ROIPool", "ROILoopPool"), "the ROIAlignV2 pooler"),
+         pooler in ("ROIPool", "ROILoopPool", "ROIAlign", "ROIAlignV2"), "other pooler types"),
         ("MODEL.MRRP.MRRP_STAGE", mrrp.MRRP_STAGE,
          not mrrp.MRRP_ON or mrrp.MRRP_STAGE == last_stage,
          f"MRRP stages other than the backbone's last, {last_stage}"),
@@ -416,13 +419,23 @@ def check_train_supported(cfg: CN) -> None:
     """``check_supported`` plus the keys that only act during training:
     raise ``NotImplementedError`` naming the first one that asks for a path
     the port's trainer does not have. Training is ported for every detector
-    ``check_supported`` admits: WSR ResNet or VGG16, plain with ``ROIPool``
-    or ``ROILoopPool``, MRRP at the last stage with either pooler. ``WSOVOD.BBOX_REFINE`` is the
+    ``check_supported`` admits: WSR ResNet or VGG16, plain or MRRP at the
+    last stage, with any of the four poolers, except that the windowed
+    ROIAlign (``TPU.ROI_ALIGN_KERNEL = "pallas_approx"``) trains only while
+    the pooled stage is frozen: its TPU kernel, ``roi_align_pallas``, has no
+    VJP in the JAX package (ROADMAP 3.10). ``WSOVOD.BBOX_REFINE`` is the
     trainer's to handle (``engine/trainer.py``)."""
     check_supported(cfg)
     m = cfg.MODEL
     ir = cfg.WSOVOD.INSTANCE_REFINEMENT
+    pooled = m.ROI_HEADS.IN_FEATURES[0]
+    pooled_trains = int(pooled[-1]) > m.BACKBONE.FREEZE_AT  # res{n} / plain{n}: stage n
+    windowed = (m.ROI_BOX_HEAD.POOLER_TYPE == "ROIAlignV2"
+                and cfg.TPU.ROI_ALIGN_KERNEL == "pallas_approx")
     checks = [
+        ("TPU.ROI_ALIGN_KERNEL", cfg.TPU.ROI_ALIGN_KERNEL, not (windowed and pooled_trains),
+         f"the windowed ROIAlign's backward while {pooled} trains "
+         f"(MODEL.BACKBONE.FREEZE_AT {m.BACKBONE.FREEZE_AT}): its TPU kernel has no VJP"),
         ("WSOVOD.INSTANCE_REFINEMENT.REFINE_MIST", ir.REFINE_MIST, not ir.REFINE_MIST,
          "MIST mining"),
         ("MODEL.ROI_BOX_HEAD.BBOX_REG_LOSS_TYPE", m.ROI_BOX_HEAD.BBOX_REG_LOSS_TYPE,

@@ -1,6 +1,6 @@
-"""ROI feature pooler for the gated ROIPool and ROILoopPool (counterpart of
-``wsovod_tpu/models/poolers.py`` ``ROIPooler.fused_chunk_pool``,
-``:171-186,571-607,801-833``).
+"""ROI feature pooler for the gated ROIPool, ROILoopPool and ROIAlign
+(counterpart of ``wsovod_tpu/models/poolers.py`` ``ROIPooler.fused_chunk_pool``
+and ``_pool_one_level``, ``:171-186,288-298,571-607,739-841``).
 
 The pooler applies a per-ROI gate inside the pool kernel, zeroes invalid
 boxes, and hands the DAN one channel chunk of ``c_take`` channels at a time
@@ -9,23 +9,33 @@ C]`` pooled tensor never exists in full. At inference the gate is the WSOVOD
 objectness gate ``(objectness + 1) * valid``; in training it is the validity
 mask and the objectness gate moves to fc1's output (see ``roi_heads.py``).
 Each chunk is one call of this module, so a forward hook sees every chunk
-the model pools. ``ROIPool`` chunks go through ``RoIPoolGatedFunction``
-and ``ROILoopPool`` chunks through ``RoILoopPoolGatedFunction``, whose
-backwards are kernels too.
+the model pools. ``ROIPool`` chunks go through ``RoIPoolGatedFunction``,
+``ROILoopPool`` chunks through ``RoILoopPoolGatedFunction`` and
+``ROIAlignV2`` and ``ROIAlign`` chunks (ROIAlign with ``aligned`` true and
+false) through ``RoIAlignGatedFunction``, whose backwards are kernels too.
+
+ROIAlign samples ``max(sampling_ratio, 1)`` points per bin axis, where
+``POOLER_SAMPLING_RATIO`` 0 means 2, as the JAX package's pooler sets it
+(``wsovod_tpu/models/poolers.py:156``; torchvision's 0 would be adaptive,
+``ceil(roi / P)``: ROADMAP 3.9). ``TPU.ROI_ALIGN_KERNEL`` picks the exact
+align for ``fused``, ``pallas`` and ``gather`` (all three compute exact
+ROIAlignV2 in the JAX package) and the windowed one of
+``roi_align_pallas`` for ``pallas_approx`` (ROIAlignV2 only, as in the JAX
+package; ROIAlign with ``aligned`` false is always exact).
 
 ``ROILoopPool`` pools only the ROI row at inference (``rows=1``): there the
 frame and context rows feed nothing; in training it pools all three (``[3,
 B, N, P, P, c]``), for the object miner (see ``roi_heads.py``). Under MRRP
 the feature is the branch-major concat ``[n_br * B, H, W, C]``; ROI ``n`` of
 image ``b`` reads copy ``branch * B + b`` with ``branch = (level_ids //
-1000) % n_br``, passed to either pool's kernel per ROI (the plain ROIPool
-of the MRRP VGG16, as ``wsovod_tpu/models/poolers.py:808-840``, and the
-ROILoopPool). A plain ROIPool on a feature of one copy per image passes no
-``src``. The JAX package's
+1000) % n_br``, passed to the kernel per ROI (the plain ROIPool of the MRRP
+VGG16 and ROIAlign, as ``wsovod_tpu/models/poolers.py:808-840`` pools every
+copy and keeps each ROI's, and the ROILoopPool). A plain ROIPool or ROIAlign
+on a feature of one copy per image passes no ``src``. The JAX package's
 ``branch_partition`` sort and unsort exist only because a TPU block reads
 one branch's tile; a per-ROI source index needs neither. None of its TPU
-schedule toggles (hpyr, wsplit, cls, n56c, tile8, maxabs, fullrow) exist
-here.
+schedule toggles (hpyr, wsplit, cls, n56c, tile8, maxabs, fullrow) or
+ROIAlign size buckets exist here.
 """
 
 from __future__ import annotations
@@ -35,7 +45,10 @@ from typing import Iterator, Optional, Sequence
 import torch
 from torch import nn
 
+from ..ops.roi_align import WINDOW, RoIAlignGatedFunction
 from ..ops.roi_pool import RoILoopPoolGatedFunction, RoIPoolGatedFunction
+
+POOLER_TYPES = ("ROIPool", "ROILoopPool", "ROIAlign", "ROIAlignV2")
 
 
 def chunk_width(channels: int) -> int:
@@ -45,23 +58,32 @@ def chunk_width(channels: int) -> int:
 
 class ROIPooler(nn.Module):
     def __init__(self, output_size: int, scale: float, pooler_type: str = "ROIPool",
-                 context_ratio: float = 1.8):
+                 context_ratio: float = 1.8, sampling_ratio: int = 0,
+                 align_kernel: str = "fused"):
         super().__init__()
-        if pooler_type not in ("ROIPool", "ROILoopPool"):
+        if pooler_type not in POOLER_TYPES:
             raise ValueError(f"unsupported pooler type {pooler_type}")
         self.output_size = output_size
         self.scale = float(scale)
         self.pooler_type = pooler_type
         self.context_ratio = context_ratio
+        self.sampling_ratio = sampling_ratio if sampling_ratio > 0 else 2
+        self.aligned = pooler_type == "ROIAlignV2"
+        self.window = WINDOW if self.aligned and align_kernel == "pallas_approx" else None
 
     def forward(self, feat: torch.Tensor, boxes: torch.Tensor, gate: torch.Tensor,
                 c_base: int, c_take: int, src: Optional[torch.Tensor] = None,
                 rows: int = 1) -> torch.Tensor:
-        """One gated chunk ``[B, N, P, P, c_take]``: ``roi_pool_gated``
-        reading copy ``src [B, N]`` (``None``: each ROI its own image), or
-        the ROI row of ``roi_loop_pool_gated`` reading copy ``src``; with
-        ``rows`` 3 all of its rows, ``[3, B, N, P, P, c_take]``. Both
-        differentiable."""
+        """One gated chunk ``[B, N, P, P, c_take]``: ``roi_pool_gated`` or
+        ``roi_align_gated`` reading copy ``src [B, N]`` (``None``: each ROI
+        its own image), or the ROI row of ``roi_loop_pool_gated`` reading
+        copy ``src``; with ``rows`` 3 all of its rows, ``[3, B, N, P, P,
+        c_take]``. All differentiable (the windowed align in its gate
+        only)."""
+        if self.pooler_type in ("ROIAlign", "ROIAlignV2"):
+            return RoIAlignGatedFunction.apply(feat, boxes, gate, c_base, c_take, self.output_size,
+                                               self.scale, self.sampling_ratio, self.aligned, src,
+                                               self.window)
         if self.pooler_type == "ROILoopPool":
             out = RoILoopPoolGatedFunction.apply(feat, boxes, gate, src, c_base, c_take, rows,
                                                  self.output_size, self.scale, self.context_ratio)
@@ -94,7 +116,9 @@ class ROIPooler(nn.Module):
 
 
 def build_pooler(cfg, strides: Sequence[int]) -> ROIPooler:
-    """Single-level ROIPool or ROILoopPool (``config.check_supported``
-    refuses the other pooler types and multi-level pooling)."""
+    """Single-level ROIPool, ROILoopPool or ROIAlign(V2)
+    (``config.check_supported`` refuses multi-level pooling)."""
     rb = cfg.MODEL.ROI_BOX_HEAD
-    return ROIPooler(rb.POOLER_RESOLUTION, 1.0 / strides[0], rb.POOLER_TYPE)
+    return ROIPooler(rb.POOLER_RESOLUTION, 1.0 / strides[0], rb.POOLER_TYPE,
+                     sampling_ratio=rb.POOLER_SAMPLING_RATIO,
+                     align_kernel=cfg.TPU.ROI_ALIGN_KERNEL)

@@ -537,7 +537,7 @@ def _check_loop(feat, rois, gate, src, c_base, c_take, rows):
         raise ValueError(f"the loop pool runs on CPU or CUDA tensors, not {feat.device}")
 
 
-def _check_loop_kernel_args(feat, c_base, c_take, what):
+def _check_kernel_args(feat, c_base, c_take, what):
     if feat.dtype not in _DTYPE_SUFFIX:
         raise TypeError(f"{what} kernel takes bfloat16 or float32, not {feat.dtype}")
     if not feat.is_contiguous() or feat.data_ptr() % 16:
@@ -577,7 +577,7 @@ def roi_loop_pool_gated(
     if feat.device.type == "cpu":
         return roi_loop_pool_gated_plain(feat, rois, gate, src, c_base, c_take, rows,
                                          output_size, spatial_scale, context_ratio)
-    _check_loop_kernel_args(feat, c_base, c_take, "roi_loop_pool_gated")
+    _check_kernel_args(feat, c_base, c_take, "roi_loop_pool_gated")
     b, n = rois.shape[:2]
     _, h, w, c = feat.shape
     geo = loop_geometry(rois, spatial_scale, h, w, context_ratio).contiguous()
@@ -698,7 +698,7 @@ def roi_loop_pool_gated_bwd(
         return roi_loop_pool_gated_bwd_plain(feat, rois, gate, src, out, g, c_base, c_take,
                                              output_size, spatial_scale, context_ratio, need_feat,
                                              need_gate)
-    _check_loop_kernel_args(feat, c_base, c_take, "roi_loop_pool_gated_bwd")
+    _check_kernel_args(feat, c_base, c_take, "roi_loop_pool_gated_bwd")
     s_copies, h, w, c = feat.shape
     geo = loop_geometry(rois, spatial_scale, h, w, context_ratio).contiguous()
     src32 = _src32(src, s_copies)

@@ -344,14 +344,31 @@ def _model_draws(model_rng, b, p, r):
     return [_t(x) for x in _model_draw_arrays(model_rng, b, p, r)]
 
 
-def _grads_and_feature(jmodel, loss_fn, images, name):
-    """``jit((p, it) -> (value_and_grad(loss_fn)(p, it), backbone feature
-    name at p))``: the JAX package's gradients and the backbone output the
-    port's second pass takes, in one compiled program."""
+def _grad_program(jmodel, loss_fn, trainable, images=None, name=None):
+    """``jit((p, it) -> value_and_grad(loss_fn)(p, it))``, and with
+    ``name`` also the backbone output ``name`` at ``p`` (the port's second
+    pass takes it) in the same compiled program. Only the heads and the
+    backbone stages whose keys start with ``trainable`` are differentiated:
+    the other stages are constants of the gradient, so XLA builds no
+    gradient program for their weights, and their gradients are zeros (the
+    port compares trainable gradients only, and the optimizer's frozen label
+    zeroes those stages' updates whatever their gradient)."""
 
     def fn(p, it):
+        backbone = p["params"]["backbone"]
+        held = {k: v for k, v in backbone.items() if not k.startswith(trainable)}
+        free = {**p["params"],
+                "backbone": {k: v for k, v in backbone.items() if k.startswith(trainable)}}
+
+        def loss(free):
+            return loss_fn({"params": {**free, "backbone": {**free["backbone"], **held}}}, it)
+
+        value, g = jax.value_and_grad(loss, has_aux=True)(free)
+        g = {**g, "backbone": {**g["backbone"], **jax.tree_util.tree_map(jnp.zeros_like, held)}}
+        if name is None:
+            return value, {"params": g}
         feats = jmodel.apply(p, images, method=lambda m, x: m.backbone(m._normalize(x), train=True))
-        return jax.value_and_grad(loss_fn, has_aux=True)(p, it), feats[name]
+        return (value, {"params": g}), feats[name]
 
     return jax.jit(fn)
 
@@ -374,21 +391,37 @@ def _params_by_name(model):
 def test_train_step_matches_jax(monkeypatch):
     """Losses, gradients and two SGD updates of the tiny R18 config, for
     ``FREEZE_AT`` 5 (heads only) and 4 (res5 trains through the pool
-    backward). One compiled JAX program serves both: its backbone is not
-    stopped, and at 5 its backbone gradients are simply not compared (the
-    optimizer's frozen label zeroes their updates). The same with the
-    ``ROIAlignV2`` pooler at ``FREEZE_AT`` 4 (res5 trains through the
-    align's backward, ``roi_align_gated_bwd_plain`` here). Then gradient
-    clipping and ``ITER_SIZE`` accumulation against optax."""
-    _check_train_step(monkeypatch, None, (5, 4))
-    _check_train_step(monkeypatch, "ROIAlignV2", (4,))
+    backward). One compiled JAX program serves both: it differentiates the
+    heads and res5 (``_grad_program``), and at 5 res5's gradients are simply
+    not compared (the optimizer's frozen label zeroes their updates). The
+    same with the ``ROIAlignV2`` pooler at ``FREEZE_AT`` 4 (res5 trains
+    through the align's backward, ``roi_align_gated_bwd_plain`` here). Then
+    gradient clipping and ``ITER_SIZE`` accumulation against optax."""
+    optimizers = {}  # the pooler has no parameters: one update program per FREEZE_AT
+    _check_train_step(monkeypatch, None, (5, 4), optimizers)
+    _check_train_step(monkeypatch, "ROIAlignV2", (4,), optimizers)
     _check_clipping_and_accumulation()
 
 
-def _check_train_step(monkeypatch, pooler, freeze_ats):
+def _jax_sgd(jcfg, params):
+    """The JAX package's optimizer for ``jcfg``: ``(sgd, state)``, with
+    ``sgd(p, state, g) -> (p, state)`` one compiled update and ``state`` its
+    initial state on ``params``."""
+    from wsovod_tpu.solver.build import build_optimizer as jax_build_optimizer
+
+    tx = jax_build_optimizer(jcfg, params["params"])
+
+    @jax.jit
+    def sgd(p, state, g):
+        updates, state = tx.update(g, state, p)
+        return optax.apply_updates(p, updates), state
+
+    return sgd, jax.jit(tx.init)(params["params"])
+
+
+def _check_train_step(monkeypatch, pooler, freeze_ats, optimizers):
     from wsovod_tpu.config import get_cfg as jax_get_cfg
     from wsovod_tpu.models import build_model as jax_build_model
-    from wsovod_tpu.solver.build import build_optimizer as jax_build_optimizer
 
     monkeypatch.setattr(flax.linen, "Dropout", _NoDropout)
     jmodel = jax_build_model(_train_cfg(jax_get_cfg(), 4, pooler=pooler))
@@ -403,7 +436,7 @@ def _check_train_step(monkeypatch, pooler, freeze_ats):
                               embeddings=jnp.asarray(emb))
         return sum(losses.values()), losses
 
-    grad_fn = jax.jit(jax.value_and_grad(loss_fn, has_aux=True))
+    grad_fn = _grad_program(jmodel, loss_fn, ("res5",))
     (_, jlosses), jgrads0 = grad_fn(params0, jnp.asarray(3))
     jgrads = {k: v.numpy() for k, v in state_dict_from_jax(jgrads0).items()}
     init = {k: v.numpy() for k, v in state_dict_from_jax(params0).items()}
@@ -439,15 +472,9 @@ def _check_train_step(monkeypatch, pooler, freeze_ats):
         step.update()
 
         # two updates on the JAX side, then the port's second
-        jcfg = _train_cfg(jax_get_cfg(), freeze_at, pooler=pooler)
-        tx = jax_build_optimizer(jcfg, params0["params"])
-
-        @jax.jit
-        def sgd(p, state, g):
-            updates, state = tx.update(g, state, p)
-            return optax.apply_updates(p, updates), state
-
-        opt_state = jax.jit(tx.init)(params0["params"])
+        if freeze_at not in optimizers:
+            optimizers[freeze_at] = _jax_sgd(_train_cfg(jax_get_cfg(), freeze_at), params0)
+        sgd, opt_state = optimizers[freeze_at]
         params, g = params0, jgrads0
         for it in (3, 4):
             if it > 3:
@@ -488,7 +515,6 @@ def test_mrrp_train_step_matches_jax(monkeypatch):
     branches (the losses are the same)."""
     from wsovod_tpu.config import get_cfg as jax_get_cfg
     from wsovod_tpu.models import build_model as jax_build_model
-    from wsovod_tpu.solver.build import build_optimizer as jax_build_optimizer
 
     monkeypatch.setattr(flax.linen, "Dropout", _NoDropout)
     jmodel = jax_build_model(_train_cfg(jax_get_cfg(), 4, MRRP_YAML))
@@ -503,7 +529,7 @@ def test_mrrp_train_step_matches_jax(monkeypatch):
                               embeddings=jnp.asarray(emb))
         return sum(losses.values()), losses
 
-    grad_fn = _grads_and_feature(jmodel, loss_fn, jbatch["images"], "res5")
+    grad_fn = _grad_program(jmodel, loss_fn, ("res5",), jbatch["images"], "res5")
     ((_, jlosses), jgrads0), jax_res5 = grad_fn(params0, jnp.asarray(3))
     jgrads = {k: v.numpy() for k, v in state_dict_from_jax(jgrads0).items()}
     jax_res5 = np.asarray(jax_res5)
@@ -577,15 +603,7 @@ def test_mrrp_train_step_matches_jax(monkeypatch):
                 "the port's forward")
     step.update()
 
-    jcfg = _train_cfg(jax_get_cfg(), 4, MRRP_YAML)
-    tx = jax_build_optimizer(jcfg, params0["params"])
-
-    @jax.jit
-    def sgd(p, state, g):
-        updates, state = tx.update(g, state, p)
-        return optax.apply_updates(p, updates), state
-
-    opt_state = jax.jit(tx.init)(params0["params"])
+    sgd, opt_state = _jax_sgd(_train_cfg(jax_get_cfg(), 4, MRRP_YAML), params0)
     params, g = params0, jgrads0
     for it in (3, 4):
         if it > 3:
@@ -628,7 +646,6 @@ def _check_mrrp_vgg_train_step(monkeypatch):
     still flow through the port's backbone and the routed pool's backward."""
     from wsovod_tpu.config import get_cfg as jax_get_cfg
     from wsovod_tpu.models import build_model as jax_build_model
-    from wsovod_tpu.solver.build import build_optimizer as jax_build_optimizer
 
     monkeypatch.setattr(flax.linen, "Dropout", _NoDropout)
     jmodel = jax_build_model(_train_cfg(jax_get_cfg(), 4, MRRP_VGG_YAML))
@@ -643,7 +660,7 @@ def _check_mrrp_vgg_train_step(monkeypatch):
                               embeddings=jnp.asarray(emb))
         return sum(losses.values()), losses
 
-    grad_fn = _grads_and_feature(jmodel, loss_fn, jbatch["images"], "plain5")
+    grad_fn = _grad_program(jmodel, loss_fn, ("plain1", "plain5"), jbatch["images"], "plain5")
     ((_, jlosses), jgrads0), jax_plain5 = grad_fn(params0, jnp.asarray(3))
     jgrads = {k: v.numpy() for k, v in state_dict_from_jax(jgrads0).items()}
     jax_plain5 = np.asarray(jax_plain5)
@@ -706,14 +723,7 @@ def _check_mrrp_vgg_train_step(monkeypatch):
                 "the port's forward")
 
     # the JAX package's two updates, and its plain5 before each
-    tx = jax_build_optimizer(_train_cfg(jax_get_cfg(), 4, MRRP_VGG_YAML), params0["params"])
-
-    @jax.jit
-    def sgd(p, state, g):
-        updates, state = tx.update(g, state, p)
-        return optax.apply_updates(p, updates), state
-
-    opt_state = jax.jit(tx.init)(params0["params"])
+    sgd, opt_state = _jax_sgd(_train_cfg(jax_get_cfg(), 4, MRRP_VGG_YAML), params0)
     params, g, jax_plain5 = params0, jgrads0, [jax_plain5]
     for it in (3, 4):
         if it > 3:

@@ -3,8 +3,9 @@
 Each kernel's source lives in ``csrc/`` and is compiled with ``nvcc`` for
 ``sm_90a`` into a shared library with a plain C interface, loaded with
 ``ctypes`` (no PyTorch headers, so a build takes seconds). The library is
-written under ``_build/`` (git-ignored), named by the source's content hash,
-so it is rebuilt exactly when the source changes. Nothing here runs at import
+written under ``_build/`` (git-ignored), named by the content hash of the
+source and of the headers in ``csrc/``, so it is rebuilt exactly when either
+changes. Nothing here runs at import
 time: the CPU tests import every module on a host without ``nvcc``.
 """
 
@@ -42,8 +43,12 @@ def _nvcc() -> str:
 
 def library_path(source: str) -> str:
     """Where the library built from ``csrc/<source>`` lives."""
-    with open(os.path.join(CSRC, source), "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(ARCH_FLAGS).encode()).hexdigest()[:16]
+    h = hashlib.sha256(" ".join(ARCH_FLAGS).encode())
+    headers = sorted(f for f in os.listdir(CSRC) if f.endswith(".cuh"))
+    for name in [source] + headers:
+        with open(os.path.join(CSRC, name), "rb") as f:
+            h.update(f.read())
+    digest = h.hexdigest()[:16]
     stem = os.path.splitext(source)[0]
     return os.path.join(BUILD_DIR, f"lib{stem}_{digest}.so")
 

@@ -11,68 +11,52 @@
 //   branch, which a per-ROI source copy does here in one pass;
 // * the same file's roi_align_pallas (TPU.ROI_ALIGN_KERNEL = "pallas_approx"):
 //   its window resamples and clamps the sample grid, which changes only the
-//   sample metadata the wrapper hands in, not this kernel.
+//   sample metadata each block builds, not the gather.
 //
 // For every image b and ROI n it computes
 //
 //   out[b, n, ph, pw, c] = gate[b, n] * (1 / s^2) * sum_{sy, sx < s} sum_{corners}
 //                          wy * wx * feat[copy, y, x, c_base + c],   copy = src ? src[b, n] : b
 //
-// with wsovod_tpu/ops/roi_pool.py::roi_align's semantics. The wrapper makes
-// the sample metadata in torch, in the reference's float32 order of
-// operations (no multiply-add contraction can move a sample across a pixel
-// edge or a range test): per sample row k = ph * s + sy its two corner rows
-// (lo, hi) and weights (zero where the sample is out of range), the same per
-// sample column. Here the weights of a sample's four corners are products wy
-// * wx, its value their blend in the reference's corner order, the s * s
-// samples of a bin summed in float32, multiplied by the float32 1 / s^2 (as
-// XLA compiles the reference's division by s * s) and by the float32 gate; the output is rounded once to the feature dtype. The JAX
-// gather path in bfloat16 rounds at every step instead; the TPU kernels, as
-// here, sum in float32.
+// with wsovod_tpu/ops/roi_pool.py::roi_align's semantics. Each block first
+// builds its ROI's sample metadata in shared memory (roi_align_common.cuh:
+// per sample row k = ph * s + sy its two corner rows and weights, zero where
+// the sample is out of range, the same per sample column; with a window,
+// 2.8's resample-and-clamp). Then the weights of a sample's four corners are
+// products wy * wx, its value their blend in the reference's corner order,
+// the s * s samples of a bin summed in float32, multiplied by the float32 1 /
+// s^2 (as XLA compiles the reference's division by s * s) and by the float32
+// gate; the output is rounded once to the feature dtype. The JAX gather path
+// in bfloat16 rounds at every step instead; the TPU kernels, as here, sum in
+// float32.
 //
 // Layout: feat is NHWC [S, H, W, C] (S copies: B, or the MRRP branch-major
 // concat n_br * B); out is [B, N, P, P, c_take], the layout the DAN's
 // chunked fc1 reads as [B*N, P*P*c_take] with no relayout. Nothing is sorted
 // by branch.
 //
-// Design (first, simple version): one block per (ROI, image); the block
-// loads the ROI's metadata (4 K ints and 4 K floats, K = P * s) into shared
-// memory, and each thread owns two adjacent channels (one 4-byte bf16x2 or
-// 8-byte float2 load per corner, so a warp reads 128 or 256 contiguous bytes
-// of one feature pixel). What bounds it: bytes read, 4 s^2 corner pixels per
-// bin and channel (about 0.8 MB per ROI per 512-channel bf16 chunk at s = 2),
-// most from the 50 MB L2 since one image's chunk is 11.6 MB at res5; the
-// output write is the only traffic device memory must carry. TPU size
-// buckets, one-hot matrices and windows have no role here.
+// Design (first, simple version): one block per (ROI, image); 2 K threads
+// (K = P * s) build the ROI's metadata, then each thread owns two adjacent
+// channels (one 4-byte bf16x2 or 8-byte float2 load per corner, so a warp
+// reads 128 or 256 contiguous bytes of one feature pixel). What bounds it:
+// bytes read, 4 s^2 corner pixels per bin and channel (about 0.8 MB per ROI
+// per 512-channel bf16 chunk at s = 2), most from the 50 MB L2 since one
+// image's chunk is 11.6 MB at res5; the output write is the only traffic
+// device memory must carry. TPU size buckets, one-hot matrices and DMA
+// windows have no role here; 2.8's window survives only as arithmetic.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "roi_align_common.cuh"
 
 namespace {
 
-template <typename T>
-struct Pair;
-
-template <>
-struct Pair<__nv_bfloat16> {
-  using V = __nv_bfloat162;
-  __device__ static float2 load(const V* p) { return __bfloat1622float2(*p); }
-  __device__ static void store(V* p, float a, float b) { *p = __floats2bfloat162_rn(a, b); }
-};
-
-template <>
-struct Pair<float> {
-  using V = float2;
-  __device__ static float2 load(const V* p) { return *p; }
-  __device__ static void store(V* p, float a, float b) { *p = make_float2(a, b); }
-};
+using roi_align::Pair;
 
 template <typename T>
-__global__ void roi_align_gated_kernel(const T* __restrict__ feat, const int* __restrict__ idx,
-                                       const float* __restrict__ wt, const int* __restrict__ src,
+__global__ void roi_align_gated_kernel(const T* __restrict__ feat, const float* __restrict__ rois,
+                                       const int* __restrict__ src,
                                        const float* __restrict__ gate, T* __restrict__ out, int H,
-                                       int W, int C, int N, int c_base, int c_take, int P, int s) {
+                                       int W, int C, int N, int c_base, int c_take, int P, int s,
+                                       int aligned, int window, float scale) {
   using V = typename Pair<T>::V;
   extern __shared__ unsigned char smem[];
   const int K = P * s;
@@ -82,10 +66,7 @@ __global__ void roi_align_gated_kernel(const T* __restrict__ feat, const int* __
   const int n = blockIdx.x;
   const int b = blockIdx.y;
   const size_t roi = (size_t)b * N + n;
-  for (int i = threadIdx.x; i < 4 * K; i += blockDim.x) {
-    sidx[i] = idx[roi * 4 * K + i];
-    swt[i] = wt[roi * 4 * K + i];
-  }
+  roi_align::build_meta(rois + roi * 4, scale, aligned, window, H, W, P, s, sidx, swt);
   __syncthreads();
   const float g = gate[roi];
   const int copy = src != nullptr ? src[roi] : b;
@@ -132,42 +113,42 @@ __global__ void roi_align_gated_kernel(const T* __restrict__ feat, const int* __
 }
 
 template <typename T>
-int launch(const void* feat, const void* idx, const void* wt, const void* src, const void* gate,
-           void* out, int B, int H, int W, int C, int N, int c_base, int c_take, int P, int s,
-           void* stream) {
+int launch(const void* feat, const void* rois, const void* src, const void* gate, void* out, int B,
+           int H, int W, int C, int N, int c_base, int c_take, int P, int s, int aligned,
+           int window, float scale, void* stream) {
   if (B == 0 || N == 0 || c_take == 0) return 0;
   const int pairs = c_take / 2;
   const int threads = pairs < 256 ? pairs : 256;
   const size_t shmem = (size_t)4 * P * s * (sizeof(int) + sizeof(float));
   const dim3 grid(N, B);
   roi_align_gated_kernel<T><<<grid, threads, shmem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(feat), static_cast<const int*>(idx), static_cast<const float*>(wt),
-      static_cast<const int*>(src), static_cast<const float*>(gate), static_cast<T*>(out), H, W,
-      C, N, c_base, c_take, P, s);
+      static_cast<const T*>(feat), static_cast<const float*>(rois), static_cast<const int*>(src),
+      static_cast<const float*>(gate), static_cast<T*>(out), H, W, C, N, c_base, c_take, P, s,
+      aligned, window, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 // Plain C entry points for ctypes. Pointers are device pointers: feat [S, H,
-// W, C]; idx int32 and wt float32 [B, N, 2, P*s, 2] (axis y then x, sample k
-// = p * s + sub, corner lo then hi; indices within the map, weights zero for
-// an out-of-range sample); src int32 [B, N] in [0, S), or null (ROI n of
-// image b reads copy b); gate float32 [B, N]; out [B, N, P, P, c_take].
-// c_base, c_take and C must be even. Returns the cudaError_t of the launch
-// (0 on success).
-extern "C" int wsovod_roi_align_gated_bf16(const void* feat, const void* idx, const void* wt,
-                                           const void* src, const void* gate, void* out, int B,
-                                           int H, int W, int C, int N, int c_base, int c_take,
-                                           int P, int s, void* stream) {
-  return launch<__nv_bfloat16>(feat, idx, wt, src, gate, out, B, H, W, C, N, c_base, c_take, P, s,
-                               stream);
+// W, C]; rois float32 [B, N, 4] (x1, y1, x2, y2 in image coordinates, scaled
+// by `scale`); src int32 [B, N] in [0, S), or null (ROI n of image b reads
+// copy b); gate float32 [B, N]; out [B, N, P, P, c_take]. `aligned` nonzero
+// takes the 0.5 offset (ROIAlignV2); `window` > 0 is 2.8's window size, 0
+// the exact align. c_base, c_take and C must be even. Returns the
+// cudaError_t of the launch (0 on success).
+extern "C" int wsovod_roi_align_gated_bf16(const void* feat, const void* rois, const void* src,
+                                           const void* gate, void* out, int B, int H, int W, int C,
+                                           int N, int c_base, int c_take, int P, int s,
+                                           int aligned, int window, float scale, void* stream) {
+  return launch<__nv_bfloat16>(feat, rois, src, gate, out, B, H, W, C, N, c_base, c_take, P, s,
+                               aligned, window, scale, stream);
 }
 
-extern "C" int wsovod_roi_align_gated_f32(const void* feat, const void* idx, const void* wt,
-                                          const void* src, const void* gate, void* out, int B,
-                                          int H, int W, int C, int N, int c_base, int c_take,
-                                          int P, int s, void* stream) {
-  return launch<float>(feat, idx, wt, src, gate, out, B, H, W, C, N, c_base, c_take, P, s,
-                       stream);
+extern "C" int wsovod_roi_align_gated_f32(const void* feat, const void* rois, const void* src,
+                                          const void* gate, void* out, int B, int H, int W, int C,
+                                          int N, int c_base, int c_take, int P, int s, int aligned,
+                                          int window, float scale, void* stream) {
+  return launch<float>(feat, rois, src, gate, out, B, H, W, C, N, c_base, c_take, P, s, aligned,
+                       window, scale, stream);
 }

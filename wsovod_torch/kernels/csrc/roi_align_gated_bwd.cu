@@ -24,46 +24,32 @@
 // feature copy, which the wrapper casts to the feature dtype: the result
 // equals the plain version to float tolerance, not bit for bit (the order of
 // the adds varies from run to run). Each ROI adds into its own copy's
-// scratch, so nothing is sorted by branch. The wrapper makes the sample
-// metadata as for the forward.
+// scratch, so nothing is sorted by branch. Each block builds its ROI's sample
+// metadata as the forward does (roi_align_common.cuh).
 //
 // Design (first, simple version, as the forward): one block per (ROI,
-// image), the ROI's metadata in shared memory, each thread owns two adjacent
-// channels and adds both with one 8-byte float2 atomic (sm_90) per corner
-// of nonzero weight. g_gate is a block reduction of g * out over the ROI's
+// image), the ROI's metadata built in shared memory, each thread owns two
+// adjacent channels and adds both with one 8-byte float2 atomic (sm_90) per
+// corner of nonzero weight. g_gate is a block reduction of g * out over the ROI's
 // bins and channels. What bounds it: the float32 atomics, 4 s^2 per bin and
 // channel pair (about 2 G float2 atomics per 512-channel chunk at B = 4,
 // 5024 ROIs per image, s = 2), against the bytes of the cotangent and the
 // scratch.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "roi_align_common.cuh"
 
 namespace {
 
-template <typename T>
-struct Pair;
-
-template <>
-struct Pair<__nv_bfloat16> {
-  using V = __nv_bfloat162;
-  __device__ static float2 load(const V* p) { return __bfloat1622float2(*p); }
-};
-
-template <>
-struct Pair<float> {
-  using V = float2;
-  __device__ static float2 load(const V* p) { return *p; }
-};
+using roi_align::Pair;
 
 template <typename T>
-__global__ void roi_align_gated_bwd_kernel(const int* __restrict__ idx, const float* __restrict__ wt,
+__global__ void roi_align_gated_bwd_kernel(const float* __restrict__ rois,
                                            const int* __restrict__ src,
                                            const float* __restrict__ gate,
                                            const T* __restrict__ g, const T* __restrict__ out,
                                            float* __restrict__ scratch, float* __restrict__ g_gate,
-                                           int H, int W, int N, int c_take, int P, int s) {
+                                           int H, int W, int N, int c_take, int P, int s,
+                                           int aligned, float scale) {
   using V = typename Pair<T>::V;
   extern __shared__ unsigned char smem[];
   const int K = P * s;
@@ -96,14 +82,11 @@ __global__ void roi_align_gated_bwd_kernel(const int* __restrict__ idx, const fl
   }
   if (scratch == nullptr || gt == 0.0f) return;  // a gate of 0 sends nothing to the feature
 
-  for (int i = threadIdx.x; i < 4 * K; i += blockDim.x) {
-    sidx[i] = idx[roi * 4 * K + i];
-    swt[i] = wt[roi * 4 * K + i];
-  }
+  roi_align::build_meta(rois + roi * 4, scale, aligned, 0, H, W, P, s, sidx, swt);
   __syncthreads();
   const int copy = src != nullptr ? src[roi] : b;
   float* sb = scratch + (size_t)copy * H * W * c_take;
-  const float scale = __fmul_rn(gt, 1.0f / (float)(s * s));
+  const float gain = __fmul_rn(gt, 1.0f / (float)(s * s));
   const int* yi = sidx;
   const int* xi = sidx + 2 * K;
   const float* yw = swt;
@@ -113,7 +96,7 @@ __global__ void roi_align_gated_bwd_kernel(const int* __restrict__ idx, const fl
     for (int ph = 0; ph < P; ++ph) {
       for (int pw = 0; pw < P; ++pw) {
         const float2 gv = Pair<T>::load(gr + (size_t)(ph * P + pw) * pairs + cp);
-        const float t0 = gv.x * scale, t1 = gv.y * scale;
+        const float t0 = gv.x * gain, t1 = gv.y * gain;
         if (t0 == 0.0f && t1 == 0.0f) continue;
         for (int sy = 0; sy < s; ++sy) {
           const int ky = 2 * (ph * s + sy);
@@ -138,9 +121,9 @@ __global__ void roi_align_gated_bwd_kernel(const int* __restrict__ idx, const fl
 }
 
 template <typename T>
-int launch(const void* idx, const void* wt, const void* src, const void* gate, const void* g,
-           const void* out, void* scratch, void* g_gate, int B, int H, int W, int N, int c_take,
-           int P, int s, void* stream) {
+int launch(const void* rois, const void* src, const void* gate, const void* g, const void* out,
+           void* scratch, void* g_gate, int B, int H, int W, int N, int c_take, int P, int s,
+           int aligned, float scale, void* stream) {
   if (B == 0 || N == 0 || c_take == 0) return 0;
   const int pairs = c_take / 2;
   int threads = pairs < 256 ? pairs : 256;
@@ -148,34 +131,37 @@ int launch(const void* idx, const void* wt, const void* src, const void* gate, c
   const size_t shmem = (size_t)4 * P * s * (sizeof(int) + sizeof(float));
   const dim3 grid(N, B);
   roi_align_gated_bwd_kernel<T><<<grid, threads, shmem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int*>(idx), static_cast<const float*>(wt), static_cast<const int*>(src),
+      static_cast<const float*>(rois), static_cast<const int*>(src),
       static_cast<const float*>(gate), static_cast<const T*>(g), static_cast<const T*>(out),
-      static_cast<float*>(scratch), static_cast<float*>(g_gate), H, W, N, c_take, P, s);
+      static_cast<float*>(scratch), static_cast<float*>(g_gate), H, W, N, c_take, P, s, aligned,
+      scale);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// Plain C entry points for ctypes. Pointers are device pointers: idx int32
-// and wt float32 [B, N, 2, P*s, 2] (as roi_align_gated.cu); src int32 [B, N]
-// in [0, S), or null (ROI n of image b reads copy b, S = B); gate float32
-// [B, N]; g and out [B, N, P, P, c_take] in the feature dtype. `out` and
-// `g_gate` [B, N] float32 are both null or both set (the gate cotangent);
-// `scratch` float32 [S, H, W, c_take], zeroed, is null when the feature
-// cotangent is not wanted. c_take must be even. Returns the cudaError_t of
-// the launch (0 on success).
-extern "C" int wsovod_roi_align_gated_bwd_bf16(const void* idx, const void* wt, const void* src,
-                                               const void* gate, const void* g, const void* out,
-                                               void* scratch, void* g_gate, int B, int H, int W,
-                                               int N, int c_take, int P, int s, void* stream) {
-  return launch<__nv_bfloat16>(idx, wt, src, gate, g, out, scratch, g_gate, B, H, W, N, c_take, P,
-                               s, stream);
+// Plain C entry points for ctypes. Pointers are device pointers: rois
+// float32 [B, N, 4], `aligned` and `scale` as roi_align_gated.cu; src int32
+// [B, N] in [0, S), or null (ROI n of image b reads copy b, S = B); gate
+// float32 [B, N]; g and out [B, N, P, P, c_take] in the feature dtype. `out`
+// and `g_gate` [B, N] float32 are both null or both set (the gate
+// cotangent); `scratch` float32 [S, H, W, c_take], zeroed, is null when the
+// feature cotangent is not wanted. c_take must be even. Returns the
+// cudaError_t of the launch (0 on success).
+extern "C" int wsovod_roi_align_gated_bwd_bf16(const void* rois, const void* src, const void* gate,
+                                               const void* g, const void* out, void* scratch,
+                                               void* g_gate, int B, int H, int W, int N,
+                                               int c_take, int P, int s, int aligned, float scale,
+                                               void* stream) {
+  return launch<__nv_bfloat16>(rois, src, gate, g, out, scratch, g_gate, B, H, W, N, c_take, P, s,
+                               aligned, scale, stream);
 }
 
-extern "C" int wsovod_roi_align_gated_bwd_f32(const void* idx, const void* wt, const void* src,
-                                              const void* gate, const void* g, const void* out,
-                                              void* scratch, void* g_gate, int B, int H, int W,
-                                              int N, int c_take, int P, int s, void* stream) {
-  return launch<float>(idx, wt, src, gate, g, out, scratch, g_gate, B, H, W, N, c_take, P, s,
-                       stream);
+extern "C" int wsovod_roi_align_gated_bwd_f32(const void* rois, const void* src, const void* gate,
+                                              const void* g, const void* out, void* scratch,
+                                              void* g_gate, int B, int H, int W, int N, int c_take,
+                                              int P, int s, int aligned, float scale,
+                                              void* stream) {
+  return launch<float>(rois, src, gate, g, out, scratch, g_gate, B, H, W, N, c_take, P, s, aligned,
+                       scale, stream);
 }

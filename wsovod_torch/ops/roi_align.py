@@ -34,12 +34,14 @@ origin is ``floor(y1)`` and ``floor(x1)`` aligned down to 8, clipped to the
 map; a ROI longer than its window (and whose window stops short of the
 map's edge) has its sample grid resampled into it by ``min(1, span /
 extent)`` per axis, and the corner indices are then clamped to the window.
-It changes the sample metadata only, not the kernel.
+It changes the sample metadata only, not the gather.
 
-The sample metadata (two corner indices and two weights per sample row and
-column, ``sample_meta``) is made in PyTorch, in the reference's float32
-order of operations, and shared by the kernel and the plain version; the
-kernels do the gathers, the blends and the sums.
+The plain version makes the sample metadata (two corner indices and two
+weights per sample row and column, ``sample_meta``) in PyTorch, in the
+reference's float32 order of operations; the kernels take the ROIs, the
+scale, ``aligned`` and the window, and each block builds its ROI's metadata
+in shared memory in the same order (``kernels/csrc/roi_align_common.cuh``),
+so the card holds the kernel's arithmetic against an independent path.
 
 ``RoIAlignGatedFunction`` makes ``roi_align_gated`` differentiable (the
 counterpart of ``roi_align_fused_ad`` and ``roi_align_pallas_exact_ad``):
@@ -242,21 +244,21 @@ def roi_align_gated(
     _check_kernel_args(feat, c_base, c_take, "roi_align_gated")
     s_copies, h, w, c = feat.shape
     b, n = rois.shape[:2]
-    idx, wt = (t.contiguous() for t in sample_meta(rois, spatial_scale, output_size,
-                                                   sampling_ratio, aligned, h, w, window))
+    r32 = rois.float().contiguous()
     src32 = None if src is None else _src32(src, s_copies)
     g = gate.float().contiguous()
     out = torch.empty((b, n, output_size, output_size, c_take), dtype=feat.dtype,
                       device=feat.device)
     fn = _kernel("roi_align_gated.cu", "wsovod_roi_align_gated", feat.dtype,
-                 [ctypes.c_void_p] * 6 + [ctypes.c_int] * 9 + [ctypes.c_void_p])
-    # idx, wt, src32 and g are freed when this returns, while the kernel may
+                 [ctypes.c_void_p] * 5 + [ctypes.c_int] * 11 + [ctypes.c_float, ctypes.c_void_p])
+    # r32, src32 and g are freed when this returns, while the kernel may
     # still run: the caching allocator reuses their memory only in stream order
     with torch.cuda.device(feat.device):
         stream = torch.cuda.current_stream(feat.device).cuda_stream
-        rc = fn(feat.data_ptr(), idx.data_ptr(), wt.data_ptr(), _ptr(src32), g.data_ptr(),
-                out.data_ptr(), b, h, w, c, n, int(c_base), int(c_take), int(output_size),
-                samples_per_axis(sampling_ratio), stream)
+        rc = fn(feat.data_ptr(), r32.data_ptr(), _ptr(src32), g.data_ptr(), out.data_ptr(), b, h,
+                w, c, n, int(c_base), int(c_take), int(output_size),
+                samples_per_axis(sampling_ratio), int(bool(aligned)), int(window or 0),
+                float(spatial_scale), stream)
     if rc != 0:
         raise RuntimeError(f"roi_align_gated kernel launch failed: cudaError {rc}")
     LAUNCHES += 1
@@ -353,8 +355,7 @@ def roi_align_gated_bwd(
         raise ValueError(f"roi_align_gated_bwd runs on CPU or CUDA tensors, not {feat.device}")
     _check_kernel_args(feat, c_base, c_take, "roi_align_gated_bwd")
     s_copies, h, w, _ = feat.shape
-    idx, wt = (t.contiguous() for t in sample_meta(rois, spatial_scale, output_size,
-                                                   sampling_ratio, aligned, h, w))
+    r32 = rois.float().contiguous()
     src32 = None if src is None else _src32(src, s_copies)
     gate_f32 = gate.float().contiguous()
     g = g.to(feat.dtype).contiguous()
@@ -363,14 +364,15 @@ def roi_align_gated_bwd(
                if need_feat else None)
     g_gate = torch.empty((b, n), dtype=torch.float32, device=feat.device) if need_gate else None
     fn = _kernel("roi_align_gated_bwd.cu", "wsovod_roi_align_gated_bwd", feat.dtype,
-                 [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 + [ctypes.c_void_p])
+                 [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8 + [ctypes.c_float, ctypes.c_void_p])
     # the temporaries are freed when this returns, while the kernel may still
     # run: the caching allocator reuses their memory only in stream order
     with torch.cuda.device(feat.device):
         stream = torch.cuda.current_stream(feat.device).cuda_stream
-        rc = fn(idx.data_ptr(), wt.data_ptr(), _ptr(src32), gate_f32.data_ptr(), g.data_ptr(),
-                _ptr(out), _ptr(scratch), _ptr(g_gate), b, h, w, n, int(c_take),
-                int(output_size), samples_per_axis(sampling_ratio), stream)
+        rc = fn(r32.data_ptr(), _ptr(src32), gate_f32.data_ptr(), g.data_ptr(), _ptr(out),
+                _ptr(scratch), _ptr(g_gate), b, h, w, n, int(c_take), int(output_size),
+                samples_per_axis(sampling_ratio), int(bool(aligned)), float(spatial_scale),
+                stream)
     if rc != 0:
         raise RuntimeError(f"roi_align_gated_bwd kernel launch failed: cudaError {rc}")
     BWD_LAUNCHES += 1

@@ -27,7 +27,16 @@ Phases, in order; any failure exits nonzero before the last line is printed:
    132, 2048]``): the same box mix plus zero-area and gate-0 rows, 2 samples
    per bin axis, bfloat16 and float32, exact and windowed (``pallas_approx``),
    one chunk at full N and every chunk at a reduced N, to float tolerance
-   (float32 sums in another order); all times.
+   (float32 sums in another order); all times. Then the pool kernels'
+   emission modes against their plain versions, bit for bit (payloads and
+   scales), bfloat16 (float32 at a reduced N), each timed with its plain
+   version and bound: the ROIPool's maxabs (its payload also equal to the gated pool's),
+   int8 (``c_tile`` 256 of a 512-channel chunk) and tile8 at the plain
+   slice's shapes; the ROILoopPool's maxabs (rows 1 at full N on the int8
+   slice's 256-channel chunk, rows 3 at a reduced N) and int8 at the MRRP
+   slice's; the align's int8 at the ``align`` slice's shapes (and routed,
+   windowed, at a reduced N). Then the int8 fc1's GEMM (``torch._int_mm``)
+   on one chunk and the int8 RPN conv, each against its bf16 counterpart.
 4. The plain slice: ``build_model`` on ``configs/COCO-Detection/
    WSOVOD_WSR_50_DC5_1x.yaml``; 5. the MRRP slice, the same on
    ``WSOVOD_MRRP_WSR_50_DC5_1x.yaml`` (three branches at test); then the
@@ -38,17 +47,29 @@ Phases, in order; any failure exits nonzero before the last line is printed:
    ``align`` and ``mrrp-align`` slices, the two WSR-50-DC5 YAMLs with
    ``POOLER_TYPE ROIAlignV2`` (the config tree's default pooler; the MRRP
    align routed by branch), and ``align-approx``, the plain one with
-   ``TPU.ROI_ALIGN_KERNEL pallas_approx`` (the windowed align). Each with TTA
+   ``TPU.ROI_ALIGN_KERNEL pallas_approx`` (the windowed align); then the int8
+   slices ``plain-int8``, ``mrrp-int8`` and ``align-int8``: the plain, MRRP
+   and align slices' configs with ``TPU.DAN_FC1_QUANT`` and
+   ``TPU.RPN_CONV_QUANT`` ``int8`` (the JAX package's default inference;
+   the ROILoopPool's chunk is then 256 channels). Each with TTA
    off, bf16 compute, seeded random parameters, B=2 synthetic 688x1056
    images with 4000 SAM proposals each and an 80x512 class-embedding matrix,
    through ``inference_on_dataset``. Checks: the launch counts, set to 0
    just before the run and read just after, rose by one per channel chunk
    and batch for the slice's kernel (the gated ROIPool, routed by branch
-   under the MRRP VGG16; the ROIAlign) and stayed 0 for the others;
+   under the MRRP VGG16; the ROIAlign; in the int8 slices the ROIPool's and
+   the ROILoopPool's maxabs emission, the align's bf16 kernel) and stayed 0
+   for the others; the int8 GEMMs ran once per fc1 chunk and 9 times per
+   RPN level and batch in the int8 slices, never in the others;
    detections are finite and every image has some; the chunks the model
    pooled on the first batch equal the plain version called directly on the
-   same card tensors (bit for bit; the align to float tolerance); under
-   MRRP the RPN's proposals come from more than one branch. Prints
+   same card tensors (bit for bit, the maxabs too; the align to float
+   tolerance; the int8 slices' on their first 256 ROIs per image); under
+   MRRP the RPN's proposals come from more than one branch. An int8 slice also meets the JAX package's int8-vs-float guard
+   on its first batch: the ROI heads with fc1 int8 and in bf16 on the same
+   features and proposals, pre-NMS class probabilities p99 relative error
+   under 3% and each image's top detection within 1 px; it prints its fc1
+   and rpn stage times beside the bf16 slice's. Prints
    images/s, the per-stage wall times, peak memory, the RPN input feature's
    standard deviation per copy, and the device's busy share and top device
    times of one batch under ``torch.profiler`` (trace and kernel table in
@@ -108,11 +129,13 @@ Phases, in order; any failure exits nonzero before the last line is printed:
    ``FREEZE_AT`` 5 and 4, 4 iterations each: the align launched 4 times
    per iteration, under ``FREEZE_AT`` 4 its backward too, the model's first
    backward launch re-run on a subset of its ROIs against the plain version.
-13. The card line, one JSON line of kernel records (with each kernel's bound
-   on this card computed from this run's inputs; the routed pool and its
-   backward, the same kernels with a source copy per ROI, have records of
-   their own, as has the routed align; the windowed align's times ride in
-   the align's record), and the result line.
+13. The int8 GEMM times, the card line, one JSON line of kernel records
+   (with each kernel's bound on this card computed from this run's inputs;
+   the routed pool and its backward, the same kernels with a source copy
+   per ROI, have records of their own, as has the routed align; the
+   windowed align's times ride in the align's record; each emission mode
+   has its own record, the int8 and tile8 ones with no launches, since no
+   pooler path reaches them), and the result line.
 
 It imports no JAX and nothing of ``wsovod_tpu``.
 """
@@ -162,6 +185,9 @@ PROFILE_DIR = os.path.join(REPO, "profiles")  # git-ignored
 # tensor cores (the pool kernels compare in float32)
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_OPS_PER_S = 67e12
+PEAK_INT8_OPS_PER_S = 1979e12  # dense int8 tensor-core rate
+C_TAKE_LOOP_INT8 = 256  # the ROILoopPool's chunk with the int8 fc1, the JAX pooler's
+INT8_C_TILE = 256  # the int8 emissions' quantization tile in the emission phase
 
 
 def log(*a):
@@ -435,6 +461,164 @@ def phase_routed_kernel(torch, dev, rp):
         f"{pixels / 1e9:.3f} G compares)")
     return {"max_abs_err": max_err, "ms": times["ms"], "plain_ms": times["plain_ms"],
             "bound_ms": bound_ms, "bound_by": bound_by}
+
+
+def exact(got, want):
+    """``(equal, max |err|)`` of two tuples of tensors (payloads and scales)."""
+    ok = all(a.dtype == b.dtype and a.shape == b.shape and bool((a == b).all())
+             for a, b in zip(got, want))
+    err = max((a.float() - b.float()).abs().max().item() for a, b in zip(got, want))
+    return ok, err
+
+
+def pool_bytes(copies, feat_hw, c_take, rois_t, extra_in=0):
+    """Bytes a pool call must read: the feature chunk of the copies some ROI
+    reads, in bfloat16, the ROIs and the gate (and ``extra_in``)."""
+    return copies * feat_hw[0] * feat_hw[1] * c_take * 2 + rois_t.numel() * 4 + (
+        rois_t.numel() // 4) * 4 + extra_in
+
+
+def phase_emission_kernels(torch, dev, rp, ra):
+    """The emission modes of the pool kernels against their plain versions
+    at the slices' shapes, bit for bit (payloads and scales), bfloat16 and
+    float32 (see the module docstring); kernel and plain times (bfloat16)
+    and bounds. Returns a record per kernel."""
+    rois, gate = pool_inputs(np.random.RandomState(0))
+    rois_t, gate_t = torch.from_numpy(rois).to(dev), torch.from_numpy(gate).to(dev)
+    g = torch.Generator(device=dev).manual_seed(0)
+    feat32 = torch.randn(FEAT, generator=g, device=dev)
+    rng = np.random.RandomState(1)
+    rois_l, gate_l = pool_inputs(rng)
+    branch = rng.randint(0, N_BRANCH, (B, N_ROIS))
+    branch[:, :N_BRANCH] = np.arange(N_BRANCH)
+    src_l = (branch * B + np.arange(B)[:, None]).astype(np.int32)
+    rl_t, gl_t, sl_t = (torch.from_numpy(a).to(dev) for a in (rois_l, gate_l, src_l))
+    feat_l32 = torch.randn((N_BRANCH * B,) + FEAT[1:], generator=g, device=dev)
+    rois_a, gate_a = align_inputs(np.random.RandomState(8), B, W, H)
+    ra_t, ga_t = torch.from_numpy(rois_a).to(dev), torch.from_numpy(gate_a).to(dev)
+    n, ct, cl = REDUCED_N, INT8_C_TILE, C_TAKE_LOOP_INT8
+
+    def sub(*ts):
+        return [t[:, :n].contiguous() for t in ts]
+
+    # name: (kernel, plain, feature, [(what, args)], c_take); the first check
+    # runs at full N in bfloat16 (and is timed), at a reduced N in float32
+    cases = {
+        "roi_pool_gated_maxabs": (
+            rp.roi_pool_gated_maxabs, rp.roi_pool_gated_maxabs_plain, feat32,
+            [("full N", (rois_t, gate_t, C_TAKE, C_TAKE, 7, 0.125))], C_TAKE),
+        "roi_pool_gated_int8": (
+            rp.roi_pool_gated_int8, rp.roi_pool_gated_int8_plain, feat32,
+            [("full N", (rois_t, gate_t, C_TAKE, C_TAKE, ct, 7, 0.125))], C_TAKE),
+        "roi_pool_gated_tile8": (
+            rp.roi_pool_gated_tile8, rp.roi_pool_gated_tile8_plain, feat32,
+            [("full N", (rois_t, gate_t, C_TAKE, C_TAKE, 7, 0.125))], C_TAKE),
+        "roi_loop_pool_gated_maxabs": (
+            rp.roi_loop_pool_gated_maxabs, rp.roi_loop_pool_gated_maxabs_plain, feat_l32,
+            [("rows 1, full N", (rl_t, gl_t, sl_t, cl, cl, 1, 7, 0.125)),
+             ("rows 3", (*sub(rl_t, gl_t, sl_t), cl, cl, 3, 7, 0.125))], cl),
+        "roi_loop_pool_gated_int8": (
+            rp.roi_loop_pool_gated_int8, rp.roi_loop_pool_gated_int8_plain, feat_l32,
+            [("rows 1, full N", (rl_t, gl_t, sl_t, C_TAKE, C_TAKE, ct, 1, 7, 0.125)),
+             ("rows 3", (*sub(rl_t, gl_t, sl_t), C_TAKE, C_TAKE, ct, 3, 7, 0.125))], C_TAKE),
+        "roi_align_gated_int8": (
+            ra.roi_align_gated_int8, ra.roi_align_gated_int8_plain, feat32,
+            [("full N", (ra_t, ga_t, C_TAKE, C_TAKE, ct, 7, 0.125, ALIGN_S)),
+             ("routed, windowed", (*sub(ra_t, ga_t), C_TAKE, C_TAKE, ct, 7, 0.125, ALIGN_S,
+                                   True, sub(sl_t)[0], ra.WINDOW))], C_TAKE),
+    }
+    records = {}
+    for name, (kernel, plain, f32, checks, c_take) in cases.items():
+        max_err, times = 0.0, {}
+        for dtype in (torch.bfloat16, torch.float32):
+            feat = f32.to(dtype).contiguous()
+            routed_align = name == "roi_align_gated_int8"
+            for what, args in checks:
+                # the routed align reads three copies: the loop pool's feature
+                f_ = feat_l32.to(dtype).contiguous() if routed_align and what != "full N" else feat
+                if dtype == torch.float32 and what == checks[0][0]:  # its ROI tensors at n
+                    args = tuple(sub(a)[0] if torch.is_tensor(a) and a.dim() >= 2 else a
+                                 for a in args)
+                got = kernel(f_, *args)
+                want, t = timed(lambda: plain(f_, *args))
+                ok, err = exact(got, want)
+                max_err = max(max_err, err)
+                if not ok:
+                    raise AssertionError(f"{name} != plain ({str(dtype)[6:]}, {what}): max |err| "
+                                         f"{err}")
+                if dtype == torch.bfloat16 and what == checks[0][0]:
+                    times["plain_ms"] = t
+                    times["ms"] = cuda_ms(lambda: kernel(f_, *args), 20)
+            if name == "roi_pool_gated_maxabs":  # the payload is the gated pool's, bit for bit
+                if not torch.equal(got[0], rp.roi_pool_gated(feat, *args)):
+                    raise AssertionError(f"roi_pool_gated_maxabs payload != roi_pool_gated "
+                                         f"({dtype})")
+        # least time: read the chunk of the copies some ROI reads, rois, gate
+        # (and src) once, write the payload (2 B, or 1 B int8) and the scales
+        # once; a compare per bin pixel and channel (the align: a multiply
+        # and an add per nonzero corner term), an epilogue op per output
+        out_elems = B * N_ROIS * 49 * c_take
+        n_ct = c_take // ct
+        if name.startswith("roi_align"):
+            terms = align_terms(ra, ra_t, FEAT[1], FEAT[2])
+            work, in_bytes = 2 * terms * c_take + out_elems, pool_bytes(B, FEAT[1:3], c_take, ra_t)
+        elif name.startswith("roi_loop"):
+            geo = rp.loop_geometry(rl_t, 0.125, FEAT[1], FEAT[2], 1.8)
+            work = int(bin_pixels(rp, geo[..., 0:4], None, 7, FEAT[1], FEAT[2]).sum()) * c_take
+            copies = int(torch.unique(sl_t).numel())
+            in_bytes = pool_bytes(copies, FEAT[1:3], c_take, rl_t, sl_t.numel() * 4)
+        else:
+            region = rp.round_region(rois_t, 0.125)
+            work = int(bin_pixels(rp, region, None, 7, FEAT[1], FEAT[2]).sum()) * c_take
+            in_bytes = pool_bytes(B, FEAT[1:3], c_take, rois_t)
+        out_bytes = (out_elems * 2 + B * N_ROIS * 4 if name.endswith("maxabs")
+                     else out_elems + B * N_ROIS * 4 * (1 if name.endswith("tile8") else n_ct))
+        bound_ms, bound_by = bound(work, out_elems, in_bytes, out_bytes)
+        log(f"{name} == plain, bfloat16 and float32 ({', '.join(w for w, _ in checks)}; float32 "
+            f"{n} ROIs per image for the first): exact; "
+            f"bf16 one {c_take}-channel chunk{f', c_tile {ct}' if 'int8' in name else ''}: kernel "
+            f"{times['ms']:.3f} ms, plain {times['plain_ms']:.3f} ms, bound {bound_ms:.3f} ms "
+            f"({bound_by}: {(in_bytes + out_bytes) / 1e6:.1f} MB, {(work + out_elems) / 1e9:.3f} G "
+            f"operations)")
+        records[name] = {"max_abs_err": max_err, "bound_ms": bound_ms, "bound_by": bound_by,
+                         "launches": 0, **times}
+    return records
+
+
+def phase_int8_gemms(torch, dev):
+    """The int8 fc1 and RPN conv of the slices (``torch._int_mm``, cuBLASLt's
+    int8 GEMM, as the JAX package left its int8 einsums to XLA) against
+    their floating-point counterparts at the slices' shapes: one fc1 chunk
+    ``[B * N, 49 * 512] x [49 * 512, 4096]`` and the RPN's 3x3 conv on
+    ``[2, 86, 132, 2048]``, bfloat16 activations; times only."""
+    from wsovod_torch.models.box_head import ChunkedLinear
+    from wsovod_torch.models.layers import QuantizableConv3x3, int_mm
+
+    g = torch.Generator(device=dev).manual_seed(4)
+    fc1 = ChunkedLinear(FEAT[3], 7, 4096, C_TAKE, quant="int8").to(dev)
+    with torch.no_grad():
+        fc1.weight.normal_(0.0, 0.005, generator=g)
+    x = torch.randn((B, N_ROIS, 7, 7, C_TAKE), generator=g, device=dev).to(torch.bfloat16)
+    a8 = torch.randint(-127, 128, (B * N_ROIS, 49 * C_TAKE), generator=g, device=dev,
+                       dtype=torch.int8)
+    with torch.inference_mode():
+        w8, _ = fc1.quantized_weight(0)
+        out = {"fc1_int8_gemm_ms": cuda_ms(lambda: int_mm(a8, w8), 10),
+               "fc1_int8_chunk_ms": cuda_ms(lambda: fc1(x, 0, int8=True), 10),
+               "fc1_bf16_chunk_ms": cuda_ms(lambda: fc1(x, 0), 10)}
+        conv = QuantizableConv3x3(FEAT[3], FEAT[3], "int8").to(dev)
+        feat = torch.randn(FEAT, generator=g, device=dev).to(torch.bfloat16)
+        out["rpn_conv_int8_ms"] = cuda_ms(lambda: conv.forward_nhwc(feat, int8=True), 5)
+        out["rpn_conv_bf16_ms"] = cuda_ms(lambda: conv.forward_nhwc(feat), 5)
+    ops = 2 * B * N_ROIS * 49 * C_TAKE * 4096
+    gemm_bound = max(ops / PEAK_INT8_OPS_PER_S,
+                     (a8.numel() + w8.numel() + B * N_ROIS * 4096 * 4) / PEAK_BYTES_PER_S) * 1e3
+    log(f"fc1 chunk [{B * N_ROIS}, {49 * C_TAKE}] x [{49 * C_TAKE}, 4096]: int8 GEMM (torch._int_mm) "
+        f"{out['fc1_int8_gemm_ms']:.3f} ms (bound {gemm_bound:.3f} ms at 1979 TOP/s int8), the int8 "
+        f"chunk with its activation quantize {out['fc1_int8_chunk_ms']:.3f} ms, the bf16 chunk "
+        f"{out['fc1_bf16_chunk_ms']:.3f} ms; RPN 3x3 conv on {list(FEAT)}: int8 (9 shifted GEMMs) "
+        f"{out['rpn_conv_int8_ms']:.3f} ms, bf16 (cuDNN) {out['rpn_conv_bf16_ms']:.3f} ms")
+    return out
 
 
 def align_terms(ra, rois_t, h, w):
@@ -715,12 +899,13 @@ def profile_batch(torch, model, batch, emb, out_dir, tag):
         log(f"  {getattr(e, dev_attr) / 1e3:10.3f} ms  x{e.count:<6d} {e.key[:90]}")
 
 
-def load_cfg(config, pooler=None, align_kernel=None):
+def load_cfg(config, pooler=None, align_kernel=None, quant="none"):
     """The config of a slice: TTA off, bf16 compute; the VGG16 YAMLs'
     ``RPN.IN_FEATURES`` set to ``["plain5"]`` (they inherit the base's
     ``res5``, which a VGG16 lacks: ``check_supported`` refuses it by
     name); ``pooler`` sets ``POOLER_TYPE``, ``align_kernel``
-    ``TPU.ROI_ALIGN_KERNEL``."""
+    ``TPU.ROI_ALIGN_KERNEL``, ``quant`` both ``TPU.DAN_FC1_QUANT`` and
+    ``TPU.RPN_CONV_QUANT``."""
     from wsovod_torch import get_cfg
 
     cfg = get_cfg()
@@ -733,6 +918,7 @@ def load_cfg(config, pooler=None, align_kernel=None):
         cfg.MODEL.ROI_BOX_HEAD.POOLER_TYPE = pooler
     if align_kernel is not None:
         cfg.TPU.ROI_ALIGN_KERNEL = align_kernel
+    cfg.TPU.DAN_FC1_QUANT = cfg.TPU.RPN_CONV_QUANT = quant
     return cfg
 
 
@@ -748,12 +934,18 @@ def pool_kind(model):
 
 
 # the launch counters of each pooler kind's forward and backward kernels
-# (module name, attribute), in the wrappers' modules
+# (module name, attribute), in the wrappers' modules; with the int8 fc1 the
+# ROIPool and the ROILoopPool launch their maxabs emission, the align its
+# bf16 kernel; the int8 and tile8 emissions are on no path
 FWD_COUNTERS = {"pool": ("rp", "LAUNCHES"), "loop": ("rp", "LOOP_LAUNCHES"),
-                "align": ("ra", "LAUNCHES")}
+                "align": ("ra", "LAUNCHES"), "pool-int8": ("rp", "MAXABS_LAUNCHES"),
+                "loop-int8": ("rp", "LOOP_MAXABS_LAUNCHES"), "align-int8": ("ra", "LAUNCHES")}
 BWD_COUNTERS = {"pool": ("rp", "BWD_LAUNCHES"), "loop": ("rp", "LOOP_BWD_LAUNCHES"),
                 "align": ("ra", "BWD_LAUNCHES")}
-ALL_COUNTERS = tuple(FWD_COUNTERS.values()) + tuple(BWD_COUNTERS.values())
+OFF_PATH_COUNTERS = (("rp", "INT8_LAUNCHES"), ("rp", "TILE8_LAUNCHES"),
+                     ("rp", "LOOP_INT8_LAUNCHES"), ("ra", "INT8_LAUNCHES"))
+ALL_COUNTERS = tuple(dict.fromkeys(tuple(FWD_COUNTERS.values()) + tuple(BWD_COUNTERS.values())
+                                   + OFF_PATH_COUNTERS))
 
 
 def counters_to_zero(mods):
@@ -765,22 +957,90 @@ def read_counters(mods):
     return {(mod, attr): getattr(mods[mod], attr) for mod, attr in ALL_COUNTERS}
 
 
-def run_slice(torch, dev, mods, tag, config, emb, pooler=None, align_kernel=None):
+def int8_guard(torch, model, batch, emb, tag):
+    """The JAX package's int8-vs-float guard
+    (``tests/test_roi_pool_fused.py::test_int8_vs_fp_inference_detections``)
+    on one batch of an int8 slice: the ROI heads on the same features,
+    proposals and data-aware vector with fc1 int8 and with fc1 in bf16 (the
+    model's own parameters with ``quant`` set to ``"none"``: the bf16
+    slice's model, which has the same seeded parameters). Pre-NMS class
+    probabilities: p99 of |int8 - bf16| / max |bf16| under 3%. Each image's
+    top detection: its box within 1 px of the bf16 heads' top box; where it
+    is not, the bf16 heads must score the int8 top detection's (proposal,
+    class) within twice the largest probability difference of their own top
+    score: a near tie, which random weights make common (the 80 class
+    probabilities of a ROI are near 1/81), and which NMS then resolves one
+    way or the other. Also reports how the int8 RPN conv's proposals
+    compare with the bf16 conv's on the same features."""
+    heads, fc1 = model.roi_heads, model.roi_heads.box_head.fc1
+    conv = model.proposal_generator.rpn_head.conv
+    with torch.inference_mode():
+        feats = model.backbone(model._normalize(batch["images"]))
+        props = model._proposals(feats, batch, None)
+        daf = (model._data_aware_features(feats[model.in_feature], batch)
+               if model.data_aware_head is not None else None)
+        args = (feats, props, batch["image_sizes"])
+        det_q, probs_q, _ = heads.inference(*args, data_aware_features=daf, embeddings=emb)
+        conv.quant = "none"
+        props_f = model._proposals(feats, batch, None)
+        fc1.quant = "none"
+        try:
+            det_f, probs_f, _ = heads.inference(*args, data_aware_features=daf, embeddings=emb)
+        finally:
+            fc1.quant = conv.quant = "int8"
+    pf, pq = probs_f.float(), probs_q.float()
+    diff = (pf - pq).abs()
+    rel = (diff / pf.abs().max().clamp(min=1e-8)).flatten().cpu().numpy()
+    p99 = float(np.percentile(rel, 99))
+    tie = 2 * diff.max().item()
+    top, gaps, ok = [], [], True
+    for i in range(pf.shape[0]):
+        s0 = det_f.scores[i][0].float().item()  # the bf16 top score (detections sorted)
+        move = (det_f.boxes[i][0] - det_q.boxes[i][0]).abs().max().item()
+        # the bf16 score of the int8 top detection's (proposal, class)
+        gap = s0 - pf[i, det_q.pred_inds[i][0], det_q.classes[i][0]].item()
+        top.append(round(move, 3))
+        gaps.append(gap)
+        ok &= bool(det_f.valid[i][0] and det_q.valid[i][0]) and (move <= 1.0 or gap <= tie)
+    moved = ((props.proposal_boxes - props_f.proposal_boxes).abs().amax(-1) > 1.0) & props.valid
+    log(f"{tag} int8 guard: pre-NMS class probabilities p99 |int8 - bf16| / max {p99:.5f} (limit "
+        f"0.03), max {rel.max():.5f}; the top detection's box moves {top} px (limit 1, unless a "
+        f"near tie: the bf16 heads score the int8 top {[f'{g:.2e}' for g in gaps]} below their "
+        f"top, limit {tie:.2e}); the int8 RPN conv moves {int(moved.sum())} of "
+        f"{int(props.valid.sum())} proposals by more than 1 px from the bf16 conv's at the same "
+        f"rank")
+    if not (p99 < 0.03 and ok):
+        raise AssertionError(f"{tag}: the int8 heads leave the guard of the bf16 heads: p99 {p99}, "
+                             f"top box moves {top} px, score gaps {gaps} (tie {tie})")
+    return p99, max(top)
+
+
+def run_slice(torch, dev, mods, tag, config, emb, pooler=None, align_kernel=None, quant="none",
+              bf16_stages=None):
     """Drive one slice through ``inference_on_dataset`` and check it (see
-    the module docstring); returns the slice kernel's launch count and the
-    largest difference of a model chunk from the plain version."""
+    the module docstring); returns the slice kernel's launch count, the
+    largest difference of a model chunk from the plain version and the
+    stage times. ``quant`` "int8": the int8 slice, its int8 GEMMs counted,
+    its guard against the bf16 heads checked and its stage times printed
+    beside ``bf16_stages``."""
     from wsovod_torch.engine.evaluator import inference_on_dataset
     from wsovod_torch.models import build_model
+    from wsovod_torch.models import layers
 
     rp, ra = mods["rp"], mods["ra"]
-    cfg = load_cfg(config, pooler, align_kernel)
+    int8 = quant == "int8"
+    cfg = load_cfg(config, pooler, align_kernel, quant)
     t0 = time.perf_counter()
     model = build_model(cfg, device=dev, seed=0)
     kind, mrrp, n_chunks = pool_kind(model)
-    counter = FWD_COUNTERS[kind]
+    counter = FWD_COUNTERS[f"{kind}-int8" if int8 else kind]
+    maxabs = model.roi_heads.pooler.emits_maxabs(int8)
+    rpn = model.proposal_generator
+    levels = model.mrrp_num_branch if mrrp and rpn.mrrp_test_all else 1
     window = getattr(model.roi_heads.pooler, "window", None)
     log(f"{tag} model: {os.path.basename(config)}, {cfg.MODEL.ROI_BOX_HEAD.POOLER_TYPE}"
-        f"{f' (windowed, {window})' if window else ''}, "
+        f"{f' (windowed, {window})' if window else ''}"
+        f"{f', fc1 and RPN conv int8, {n_chunks} chunks' if int8 else ''}, "
         f"{sum(p.numel() for p in model.parameters()) / 1e6:.3f}M parameters, built in "
         f"{time.perf_counter() - t0:.3f} s")
     warm = make_batches(1, seed=7)
@@ -805,6 +1065,7 @@ def run_slice(torch, dev, mods, tag, config, emb, pooler=None, align_kernel=None
              model.proposal_generator.register_forward_hook(capture_rpn)]
     torch.cuda.reset_peak_memory_stats(dev)
     counters_to_zero(mods)
+    layers.INT_MM_CALLS = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     counts = inference_on_dataset(model, batches, DetectionCounter(), embeddings=emb)
@@ -812,6 +1073,7 @@ def run_slice(torch, dev, mods, tag, config, emb, pooler=None, align_kernel=None
     dt = time.perf_counter() - t0
     launched = read_counters(mods)
     launches = launched.pop(counter)
+    int_mms = layers.INT_MM_CALLS
     for h in hooks:
         h.remove()
     n_images = B * N_BATCHES
@@ -820,14 +1082,24 @@ def run_slice(torch, dev, mods, tag, config, emb, pooler=None, align_kernel=None
     if launches != n_chunks * N_BATCHES or any(launched.values()):
         raise AssertionError(f"{tag}: {counter} {launches} (expected {n_chunks * N_BATCHES}), "
                              f"the others {launched} (expected 0)")
+    want_mms = N_BATCHES * (n_chunks + 9 * levels) if int8 else 0  # fc1 chunks, 9 per conv
+    if int_mms != want_mms:
+        raise AssertionError(f"{tag}: {int_mms} int8 GEMMs, expected {want_mms}")
     if len(counts) != n_images or min(counts.values()) <= 0:
         raise AssertionError(f"{tag}: images without detections: {counts}")
     if len(captured) != n_chunks:
         raise AssertionError(f"{tag}: captured {len(captured)} pooled chunks")
     max_err = 0.0
-    for k, ((feat, boxes, gate, c_base, c_take, src, rows), out) in enumerate(captured):
-        assert rows == 1, rows
-        assert out.shape == (B, N_ROIS, 7, 7, C_TAKE), out.shape
+    for k, ((feat, boxes, gate, c_base, c_take, src, rows, emit), out) in enumerate(captured):
+        assert rows == 1 and emit == maxabs, (rows, emit)
+        out, m = out if maxabs else (out, None)
+        assert out.shape == (B, N_ROIS, 7, 7, c_take) and c_take * n_chunks == feat.shape[3], (
+            out.shape, n_chunks)
+        if int8:  # the int8 slices' chunks on their first REDUCED_N ROIs per image
+            cut = slice(0, REDUCED_N)
+            out, m = out[:, cut], (None if m is None else m[:, cut])
+            boxes, gate = boxes[:, cut].contiguous(), gate[:, cut].contiguous()
+            src = None if src is None else src[:, cut].contiguous()
         assert feat.shape[0] == (N_BRANCH * B if mrrp else B), feat.shape
         if kind == "loop":
             want = rp.roi_loop_pool_gated_plain(feat, boxes, gate, src, c_base, c_take, 1, 7, 0.125,
@@ -846,14 +1118,20 @@ def run_slice(torch, dev, mods, tag, config, emb, pooler=None, align_kernel=None
                 raise AssertionError(f"{tag}: model chunk {k} differs from the plain align")
         elif not torch.equal(out, want):
             raise AssertionError(f"{tag}: model chunk {k} differs from the plain pool")
+        if maxabs and not torch.equal(m, want.float().abs().amax(dim=(2, 3, 4))):
+            raise AssertionError(f"{tag}: model chunk {k}'s maxabs differs from the plain pool's")
     rpn = rpn_out[0]
     branches = torch.unique(torch.div(rpn.level_ids[rpn.valid], 1000, rounding_mode="floor")).tolist()
     if mrrp and len(branches) < 2:
         raise AssertionError(f"{tag}: RPN proposals from branches {branches} only")
     log(f"{tag} slice: {n_images} images in {dt:.3f} s = {n_images / dt:.3f} images/s (B={B}, "
-        f"{H}x{W}, {N_ROIS} ROIs/image, bf16); detections/image min {min(counts.values())} "
-        f"max {max(counts.values())}; {'.'.join(counter)} {launches}; first batch's "
-        f"{len(captured)} pooled chunks == plain (max |err| {max_err:.3g}); RPN proposals from branches {branches} ({int(rpn.valid.sum())} valid of "
+        f"{H}x{W}, {N_ROIS} ROIs/image, bf16{', int8 fc1 and RPN conv' if int8 else ''}); "
+        f"detections/image min {min(counts.values())} max {max(counts.values())}; "
+        f"{'.'.join(counter)} {launches}; int8 GEMMs {int_mms}; first batch's {len(captured)} "
+        f"pooled chunks{' and maxabs' if maxabs else ''} == plain"
+        f"{f' on their first {REDUCED_N} ROIs per image' if int8 else ''} (max |err| "
+        f"{max_err:.3g}); RPN "
+        f"proposals from branches {branches} ({int(rpn.valid.sum())} valid of "
         f"{rpn.valid.numel()}); the RPN's input feature {feat_shape}, std per "
         f"copy {[round(v, 3) for v in feat_std]}; peak memory {peak_gb:.3f} GB")
     batch0 = {k: torch.as_tensor(batches[0][k]).to(dev)
@@ -861,10 +1139,15 @@ def run_slice(torch, dev, mods, tag, config, emb, pooler=None, align_kernel=None
     st = stage_times(torch, model, batch0, emb)
     log(f"{tag} stages (ms per B=2 batch, synchronised): "
         + json.dumps({k: round(v, 3) for k, v in st.items()}))
+    if int8:
+        int8_guard(torch, model, batch0, emb, tag)
+        log(f"{tag} vs the bf16 slice, ms per batch: fc1 {st['fc1']:.3f} vs "
+            f"{bf16_stages['fc1']:.3f}, rpn {st['rpn']:.3f} vs {bf16_stages['rpn']:.3f}, total "
+            f"{st['total']:.3f} vs {bf16_stages['total']:.3f}")
     profile_batch(torch, model, batch0, emb, PROFILE_DIR, tag)
     del model
     torch.cuda.empty_cache()
-    return launches, max_err
+    return launches, max_err, st
 
 
 def phase_bwd_kernel(torch, dev, rp):
@@ -1437,15 +1720,16 @@ def main() -> int:
     records = {"roi_pool_gated": phase_pool_kernel(torch, dev, rp),
                "roi_loop_pool_gated": phase_loop_kernel(torch, dev, rp),
                "roi_pool_gated_routed": phase_routed_kernel(torch, dev, rp),
-               **phase_align_kernel(torch, dev, ra)}
+               **phase_align_kernel(torch, dev, ra),
+               **phase_emission_kernels(torch, dev, rp, ra)}
+    int8_gemms = phase_int8_gemms(torch, dev)
 
     # ---- 4., 5. the inference slices
     emb = torch.randn(80, 512, generator=torch.Generator().manual_seed(2)).to(dev)
-    by_path = {name: {} for name in ("roi_pool_gated", "roi_loop_pool_gated",
-                                     "roi_pool_gated_routed", "roi_align_gated",
-                                     "roi_align_gated_routed", "roi_pool_gated_bwd",
-                                     "roi_loop_pool_gated_bwd", "roi_pool_gated_bwd_routed",
-                                     "roi_align_gated_bwd")}
+    by_path = {name: {} for name in records}
+    by_path.update({name: {} for name in ("roi_pool_gated_bwd", "roi_loop_pool_gated_bwd",
+                                          "roi_pool_gated_bwd_routed", "roi_align_gated_bwd")})
+    stages = {}
     for name, tag, config, pooler in (
             ("roi_pool_gated", "plain", PLAIN_CONFIG, None),
             ("roi_loop_pool_gated", "mrrp", MRRP_CONFIG, None),
@@ -1454,13 +1738,26 @@ def main() -> int:
             ("roi_align_gated", "align", PLAIN_CONFIG, ALIGN),
             ("roi_align_gated_routed", "mrrp-align", MRRP_CONFIG, ALIGN),
             ("roi_align_gated", "align-approx", PLAIN_CONFIG, ALIGN)):
-        launches, err = run_slice(torch, dev, mods, tag, config, emb, pooler,
-                                  "pallas_approx" if tag == "align-approx" else None)
+        launches, err, stages[tag] = run_slice(torch, dev, mods, tag, config, emb, pooler,
+                                               "pallas_approx" if tag == "align-approx" else None)
+        by_path[name][tag] = launches
+        records[name]["max_abs_err"] = max(records[name]["max_abs_err"], err)
+    # the int8 slices: the WSR-50-DC5 YAMLs with both int8 keys (the JAX
+    # package's default inference); the ROIPool and the ROILoopPool emit
+    # through their maxabs kernels, the align through its bf16 kernel
+    for name, tag, config, pooler, ref in (
+            ("roi_pool_gated_maxabs", "plain-int8", PLAIN_CONFIG, None, "plain"),
+            ("roi_loop_pool_gated_maxabs", "mrrp-int8", MRRP_CONFIG, None, "mrrp"),
+            ("roi_align_gated", "align-int8", PLAIN_CONFIG, ALIGN, "align")):
+        launches, err, stages[tag] = run_slice(torch, dev, mods, tag, config, emb, pooler,
+                                               quant="int8", bf16_stages=stages[ref])
         by_path[name][tag] = launches
         records[name]["max_abs_err"] = max(records[name]["max_abs_err"], err)
     for name, tag in (("roi_pool_gated", "plain"), ("roi_loop_pool_gated", "mrrp"),
                       ("roi_pool_gated_routed", "mrrp-vgg"), ("roi_align_gated", "align"),
-                      ("roi_align_gated_routed", "mrrp-align")):
+                      ("roi_align_gated_routed", "mrrp-align"),
+                      ("roi_pool_gated_maxabs", "plain-int8"),
+                      ("roi_loop_pool_gated_maxabs", "mrrp-int8")):
         records[name]["launches"] = by_path[name][tag]
 
     # ---- 6., 7. the backward kernels vs plain; 8.-12. the train slices
@@ -1522,9 +1819,25 @@ def main() -> int:
                                    "wsovod_tpu/ops/pallas/roi_align_kernel.py:554"),
         "roi_align_gated_bwd": ("wsovod_torch/kernels/csrc/roi_align_gated_bwd.cu",
                                 "wsovod_tpu/ops/pallas/roi_align_fused.py:453"),
+        # 2.3: the emission modes of the same pallas_call (_write_out :833)
+        # and the align's int8 emission
+        "roi_pool_gated_maxabs": ("wsovod_torch/kernels/csrc/roi_pool_gated.cu",
+                                  "wsovod_tpu/ops/pallas/roi_pool_fused.py:2085"),
+        "roi_pool_gated_int8": ("wsovod_torch/kernels/csrc/roi_pool_gated.cu",
+                                "wsovod_tpu/ops/pallas/roi_pool_fused.py:2085"),
+        "roi_pool_gated_tile8": ("wsovod_torch/kernels/csrc/roi_pool_gated.cu",
+                                 "wsovod_tpu/ops/pallas/roi_pool_fused.py:2085"),
+        "roi_loop_pool_gated_maxabs": ("wsovod_torch/kernels/csrc/roi_loop_pool_gated.cu",
+                                       "wsovod_tpu/ops/pallas/roi_pool_fused.py:2085"),
+        "roi_loop_pool_gated_int8": ("wsovod_torch/kernels/csrc/roi_loop_pool_gated.cu",
+                                     "wsovod_tpu/ops/pallas/roi_pool_fused.py:2085"),
+        "roi_align_gated_int8": ("wsovod_torch/kernels/csrc/roi_align_gated.cu",
+                                 "wsovod_tpu/ops/pallas/roi_align_fused.py:408"),
     }
     extra = ("n_rois", "plain_n_rois", "ms_at_plain_n", "window_ms", "window_plain_ms", "routed_ms",
              "routed_plain_ms")
+    log("int8 GEMMs (torch._int_mm, not a kernel of the port): "
+        + json.dumps({k: round(v, 3) for k, v in int8_gemms.items()}))
     log(card)
     log(json.dumps({"kernels": [{
         "name": name, "route": "cuda", "source": meta[name][0], "replaces": meta[name][1],

@@ -4,7 +4,25 @@ open-vocabulary classifier, the data-aware head, the refinement head with
 ``predict_probs_K`` / ``predict_boxes_K``, and ``fast_rcnn_inference``.
 Tolerance 1e-5 in float32 (summation order only); detections' classes,
 validity and proposal indices exactly. The JAX side runs under ``jax.jit``:
-one compiled program per call, not one per primitive."""
+one compiled program per call, not one per primitive (XLA also makes a
+division by the constant 127 a multiplication by its float32 reciprocal,
+which the port's int8 paths follow).
+
+The int8 fc1 and RPN conv, inside ``test_box_head_and_classifier_heads_match_flax``:
+``ChunkedLinear`` with ``quant="int8"`` against ``ChunkedDenseGeneral(quant=
+"int8")`` on its three input forms (float chunks, ``(payload, maxabs)``
+pairs, ``(int8 payload, scale)`` pairs), float32, rtol 1e-6 and atol 1e-7:
+the scales and the int8 products (exact integer sums) are the same, and
+the dequant and the sum over chunks follow the same order, but XLA:CPU
+contracts the first chunk's ``* s_w`` and the following add into an FMA,
+which the port does not, so the two differ by an ulp; a quantization step
+would move a term by 1/127 of itself. (For int8 chunks alone the JAX module
+returns bfloat16: there one bfloat16 step.) ``conv3x3_shifted_int8`` against the
+JAX function, at dilation 1 and 2: without a bias bit for bit in float32
+and bfloat16 (one int32 sum, then ``(acc * s_x) * s_k``), with one float32
+rtol 1e-6 and atol 1e-7 (XLA:CPU makes ``* s_k + bias`` an FMA) and bfloat16
+within one bfloat16 step; the RPN head's conv keeps its parameters and runs
+in floating point in training."""
 
 import jax
 import jax.numpy as jnp
@@ -13,11 +31,15 @@ import torch
 
 from wsovod_tpu.models import class_heads as jch
 from wsovod_tpu.models import mil_heads as jmil
+from wsovod_tpu.models.box_head import ChunkedDenseGeneral
 from wsovod_tpu.models.box_head import DiscriminativeAdaptationNeck as JaxDAN
+from wsovod_tpu.models.layers import conv3x3_shifted_int8 as jax_conv_int8
 from wsovod_tpu.models.fast_rcnn_inference import fast_rcnn_inference_batched as jax_frcnn
 from wsovod_torch.models import class_heads as tch
 from wsovod_torch.models import mil_heads as tmil
-from wsovod_torch.models.box_head import DiscriminativeAdaptationNeck
+from wsovod_torch.models.box_head import ChunkedLinear, DiscriminativeAdaptationNeck
+from wsovod_torch.models.layers import conv3x3_shifted_int8
+from wsovod_torch.models.rpn import StandardRPNHead
 from wsovod_torch.models.fast_rcnn_inference import fast_rcnn_inference_batched
 from wsovod_torch.utils.weight_import import fc1_weight_from_jax
 
@@ -39,6 +61,99 @@ def test_box_head_and_classifier_heads_match_flax():
     for mode in ("embeddings", "embeddings_bg", "classifier"):
         _check_open_vocabulary_classifier(mode)
     _check_data_aware_head()
+    _check_int8_fc1()
+    _check_int8_rpn_conv()
+
+
+def _check_int8_fc1():
+    """``ChunkedLinear(quant="int8")`` against ``ChunkedDenseGeneral(quant=
+    "int8")``, two 32-channel chunks, on the three input forms."""
+    rng = np.random.RandomState(3)
+    b, n, c, ct, f = 2, 21, 64, 32, 24
+    x = rng.randn(b, n, 7, 7, c).astype(np.float32)
+    x[0, 3] = 0.0  # a ROI pooling nothing: its maxabs is floored at 1e-8
+    jm = ChunkedDenseGeneral(f, in_shape=(7, 7, c), quant="int8")
+    chunks = [x[..., k:k + ct] for k in range(0, c, ct)]
+    params = jax.jit(jm.init)(jax.random.PRNGKey(0), chunks)
+    kernel = np.asarray(params["params"]["kernel"])
+    lin = ChunkedLinear(c, 7, f, ct, quant="int8")
+    lin.load_state_dict({"weight": _t(fc1_weight_from_jax(kernel)),
+                         "bias": _t(params["params"]["bias"])})
+    hwnc = [np.ascontiguousarray(ch.transpose(0, 2, 3, 1, 4)) for ch in chunks]
+    maxabs = [np.abs(ch).max(axis=(2, 3, 4)) for ch in chunks]
+    q8 = [rng.randint(-127, 128, ch.shape).astype(np.int8) for ch in chunks]
+    scale = [rng.uniform(1e-3, 1e-2, (b, n)).astype(np.float32) for _ in chunks]
+    forms = {
+        "float": (chunks, "nhwc", [_t(ch) for ch in chunks]),
+        "maxabs": (list(zip(hwnc, maxabs)), "hwnc",
+                   [(_t(ch), _t(m)) for ch, m in zip(chunks, maxabs)]),
+        "int8": (list(zip([q.transpose(0, 2, 3, 1, 4) for q in q8], scale)), "hwnc",
+                 [(torch.from_numpy(q), _t(s)) for q, s in zip(q8, scale)]),
+    }
+    for name, (jchunks, layout, tchunks) in forms.items():
+        jl = ChunkedDenseGeneral(f, in_shape=(7, 7, c), quant="int8", chunk_layout=layout)
+        want = np.asarray(jax.jit(jl.apply)(params, jchunks).astype(jnp.float32))
+        with torch.inference_mode():
+            acc = None
+            for k, ch in enumerate(tchunks):
+                y = lin(ch, k, int8=True)
+                acc = y if acc is None else acc + y
+            got = acc + lin.bias.float()
+        if name == "int8":  # int8 chunks alone: ChunkedDenseGeneral returns bfloat16
+            got = got.bfloat16().float()
+            tol = dict(rtol=2.0 ** -8, atol=0)
+        else:
+            tol = dict(rtol=1e-6, atol=1e-7)
+        np.testing.assert_allclose(got.numpy(), want, **tol, err_msg=name)
+    # quant "none", or int8 not asked for (training), is the floating-point product
+    with torch.inference_mode():
+        fp = lin(_t(chunks[0]), 0)
+        assert not torch.equal(fp, lin(_t(chunks[0]), 0, int8=True))
+        plain = ChunkedLinear(c, 7, f, ct)
+        plain.load_state_dict(lin.state_dict())  # the same parameters
+        assert torch.equal(fp, plain(_t(chunks[0]), 0, int8=True))
+
+
+def _check_int8_rpn_conv():
+    """``conv3x3_shifted_int8`` against the JAX function under ``jax.jit``,
+    bit for bit; the RPN head's int8 conv at inference, its float conv in
+    training, with the same parameters."""
+    rng = np.random.RandomState(4)
+    x = rng.randn(2, 6, 9, 16).astype(np.float32)
+    kernel = (rng.randn(3, 3, 16, 24) * 0.1).astype(np.float32)
+    bias = (rng.randn(24) * 0.1).astype(np.float32)
+    weight = _t(kernel.transpose(3, 2, 0, 1))  # [F, C, 3, 3]
+    conv = jax.jit(jax_conv_int8, static_argnames="dilation")
+    for dtype, jdt in ((torch.float32, jnp.float32), (torch.bfloat16, jnp.bfloat16)):
+        for d in (1, 2):
+            want = np.asarray(conv(jnp.asarray(x, jdt), jnp.asarray(kernel), None, dilation=d)
+                              .astype(jnp.float32))
+            got = conv3x3_shifted_int8(_t(x).to(dtype), weight, None, dilation=d)
+            assert got.dtype == dtype and got.shape == (2, 6, 9, 24)
+            np.testing.assert_array_equal(got.float().numpy(), want, err_msg=f"{dtype} {d}")
+            want = np.asarray(conv(jnp.asarray(x, jdt), jnp.asarray(kernel), jnp.asarray(bias),
+                                   dilation=d).astype(jnp.float32))
+            got = conv3x3_shifted_int8(_t(x).to(dtype), weight, _t(bias), dilation=d).float()
+            tol = (dict(rtol=1e-6, atol=1e-7) if dtype == torch.float32
+                   else dict(rtol=2.0 ** -8, atol=0))
+            np.testing.assert_allclose(got.numpy(), want, **tol, err_msg=f"{dtype} {d} bias")
+    head = StandardRPNHead(16, 3, conv_quant="int8")  # its conv is 16 -> 16 channels
+    assert sorted(head.conv.state_dict()) == ["bias", "weight"]
+    kernel, bias = kernel[..., :16], bias[:16]
+    with torch.no_grad():
+        head.conv.weight.copy_(_t(kernel.transpose(3, 2, 0, 1)))
+        head.conv.bias.copy_(_t(bias))
+    want = jax.jit(jax_conv_int8)(jnp.asarray(x), jnp.asarray(kernel), jnp.asarray(bias))
+    with torch.inference_mode():
+        t_int8 = head.conv.forward_nhwc(_t(x), int8=True)
+        (lg_test,), _ = head([_t(x)])
+        (lg_train,), _ = head([_t(x)], train=True)
+        want_test = head.objectness_logits(torch.relu(t_int8).permute(0, 3, 1, 2))
+        want_train = head.objectness_logits(torch.relu(head.conv(_t(x).permute(0, 3, 1, 2))))
+    np.testing.assert_allclose(t_int8.numpy(), np.asarray(want), rtol=1e-6, atol=1e-7)
+    assert torch.equal(lg_test, want_test.permute(0, 2, 3, 1))
+    assert torch.equal(lg_train, want_train.permute(0, 2, 3, 1))
+    assert not torch.equal(lg_test, lg_train)
 
 
 def _check_dan():

@@ -49,7 +49,10 @@ def test_kernel_equals_plain(cuda):
     (3 branch copies, 600 ROIs per image, routed), rows 1 and 3. Both
     backward kernels against their plain versions to float tolerance. The
     gated ROIPool and its backward routed by a per-ROI source copy. The
-    gated ROIAlign and its backward."""
+    gated ROIAlign and its backward. The emission modes (maxabs, int8,
+    tile8; the align's int8) bit-equal to their plain versions, payloads and
+    scales, one launch counted per call."""
+    _check_emission_kernels(cuda)
     _check_align_kernels(cuda)
     _check_loop_kernel(cuda)
     _check_backward_kernel(cuda)
@@ -278,11 +281,58 @@ def _check_loop_backward_kernel(cuda):
         assert (err <= rtol * want_f.float().abs() + 1e-5 * scale).all(), (dtype, err.max())
 
 
+def _check_emission_kernels(cuda):
+    """Every emission kernel against its plain version, bfloat16 and
+    float32, unrouted and routed (three copies), rows 1 and 3."""
+    counters = ("MAXABS_LAUNCHES", "INT8_LAUNCHES", "TILE8_LAUNCHES", "LOOP_MAXABS_LAUNCHES",
+                "LOOP_INT8_LAUNCHES")
+    for dtype in (torch.bfloat16, torch.float32):
+        feat, rois, gate = _inputs(cuda, dtype, c=128)
+        three = torch.cat([feat, -feat, feat * 2]).contiguous()
+        src = (torch.arange(2, device=cuda)[:, None]
+               + 2 * (torch.arange(rois.shape[1], device=cuda) % 3)[None]).to(torch.int32)
+        before = [getattr(port, c) for c in counters] + [align.INT8_LAUNCHES]
+        cases = [
+            (port.roi_pool_gated_maxabs, port.roi_pool_gated_maxabs_plain,
+             (feat, rois, gate, 32, 64, 7, 0.125)),
+            (port.roi_pool_gated_maxabs, port.roi_pool_gated_maxabs_plain,
+             (three, rois, gate, 0, 128, 7, 0.125, src)),
+            (port.roi_pool_gated_int8, port.roi_pool_gated_int8_plain,
+             (feat, rois, gate, 0, 128, 64, 7, 0.125)),
+            (port.roi_pool_gated_int8, port.roi_pool_gated_int8_plain,
+             (three, rois, gate, 0, 128, 32, 7, 0.125, src)),
+            (port.roi_pool_gated_tile8, port.roi_pool_gated_tile8_plain,
+             (feat, rois, gate, 64, 64, 7, 0.125)),
+            (port.roi_loop_pool_gated_maxabs, port.roi_loop_pool_gated_maxabs_plain,
+             (three, rois, gate, src, 0, 128, 3, 7, 0.125)),
+            (port.roi_loop_pool_gated_maxabs, port.roi_loop_pool_gated_maxabs_plain,
+             (three, rois, gate, src, 64, 64, 1, 7, 0.125)),
+            (port.roi_loop_pool_gated_int8, port.roi_loop_pool_gated_int8_plain,
+             (three, rois, gate, src, 0, 128, 64, 3, 7, 0.125)),
+            (align.roi_align_gated_int8, align.roi_align_gated_int8_plain,
+             (feat, rois, gate, 0, 128, 64, 7, 0.125, 2)),
+            (align.roi_align_gated_int8, align.roi_align_gated_int8_plain,
+             (three, rois, gate, 0, 128, 128, 7, 0.125, 2, True, src, align.WINDOW)),
+        ]
+        for kernel, plain, args in cases:
+            got, want = kernel(*args), plain(*args)
+            for a, b in zip(got, want):
+                assert a.dtype == b.dtype and torch.equal(a, b), (kernel.__name__, dtype)
+        torch.cuda.synchronize()
+        after = [getattr(port, c) for c in counters] + [align.INT8_LAUNCHES]
+        assert [a - b for a, b in zip(after, before)] == [2, 2, 1, 2, 1, 2], (before, after)
+        # the maxabs payload is the gated pool's bit for bit
+        assert torch.equal(port.roi_pool_gated_maxabs(*cases[0][2])[0],
+                           port.roi_pool_gated(*cases[0][2]))
+
+
 def test_model_forward_on_cuda(cuda):
     """Narrow models end to end on the card, plain and MRRP, with ROIPool,
     ROILoopPool and ROIAlignV2: the pooler goes through its kernel once per
     channel chunk, detections are finite; train steps run the backward
-    kernels."""
+    kernels. With both int8 keys the ROIPool and the ROILoopPool go through
+    their maxabs emission (the ROILoopPool's 256-channel chunks: two), the
+    align through its kernel, fc1 and the RPN conv through int8 GEMMs."""
     from wsovod_torch import get_cfg
     from wsovod_torch.models import build_model
 
@@ -328,6 +378,7 @@ def test_model_forward_on_cuda(cuda):
     torch.cuda.synchronize()
     assert port.LOOP_LAUNCHES == before + 1
     assert torch.isfinite(det.scores[det.valid]).all() and det.valid.any()
+    _check_int8_models(cuda, cfg, batch, emb)
 
     # a train step of the plain model with res5 trainable: one pool and one
     # pool-backward launch per chunk, finite losses, res5 receives gradients
@@ -389,6 +440,33 @@ def test_model_forward_on_cuda(cuda):
     assert (align.LAUNCHES, align.BWD_LAUNCHES) == (before[0] + 1, before[1] + 1)
     assert len(losses) == 5 and all(torch.isfinite(v) for v in losses.values()), losses
     assert model.backbone.res5[0].conv1.weight.grad.abs().sum() > 0
+
+
+def _check_int8_models(cuda, cfg, batch, emb):
+    """The narrow MRRP config of the caller and its plain form with both
+    int8 keys, each pooler: the pool's launches, the int8 GEMMs (one per fc1
+    chunk, nine per RPN level), finite detections."""
+    from wsovod_torch.models import build_model
+    from wsovod_torch.models import layers
+
+    cfg = cfg.clone()
+    cfg.TPU.DAN_FC1_QUANT = cfg.TPU.RPN_CONV_QUANT = "int8"
+    for mrrp in (False, True):
+        cfg.MODEL.MRRP.MRRP_ON = mrrp
+        cfg.MODEL.ANCHOR_GENERATOR.SIZES = ([[32, 64], [128, 256], [512, 768]] if mrrp
+                                            else [[32, 64, 128, 256, 512]])
+        for pooler, mod, counter, chunks in (("ROIPool", port, "MAXABS_LAUNCHES", 1),
+                                             ("ROILoopPool", port, "LOOP_MAXABS_LAUNCHES", 2),
+                                             ("ROIAlignV2", align, "LAUNCHES", 1)):
+            cfg.MODEL.ROI_BOX_HEAD.POOLER_TYPE = pooler
+            model = build_model(cfg, device=cuda, seed=0)
+            before, mms = getattr(mod, counter), layers.INT_MM_CALLS
+            with torch.inference_mode():
+                det, probs, boxes = model(batch, embeddings=emb)
+            torch.cuda.synchronize()
+            assert getattr(mod, counter) == before + chunks, (pooler, mrrp)
+            assert layers.INT_MM_CALLS == mms + chunks + 9 * (3 if mrrp else 1), (pooler, mrrp)
+            assert torch.isfinite(det.scores[det.valid]).all() and det.valid.any()
 
 
 def _check_mrrp_vgg_train_step(cuda, batch, emb):

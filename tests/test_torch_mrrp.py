@@ -17,6 +17,19 @@ VGG16-DC5 detectors'.
   On the CPU the JAX pooler takes its unfused per-branch path, so no Pallas
   interpret run is involved. Tolerances as the plain slice's: rtol 1e-4, box
   atol 1e-3; validity, classes and ``level_ids`` exactly.
+* The int8 inference (both int8 keys) of the tiny MRRP R18, inside
+  ``test_mrrp_inference_matches_jax``: against the JAX package's, its pooler
+  on the TPU path in interpret mode, on its default and ``WSOVOD_POOL_MAXABS``
+  routes, with the tolerances of ``torch_port_common.check_int8_model``;
+  the ROILoopPool's chunks are 256 channels, the JAX pooler's.
+* The ROILoopPool's maxabs and int8 emissions, rows 1 and 3, and the routed
+  ROIPool's, inside ``test_loop_pool_plain_matches_jax``: against the TPU
+  kernel (``roi_pool_fused_batched(..., loop_pool=..., src_tbl=...,
+  quant=...)``) in interpret mode on clipped boxes with 3x3 bins (its
+  interpret trace grows with them), exactly (the routed ROIPool's int8),
+  and against the jnp reference pools (7x7) with the quantize formula in
+  numpy on the edge boxes of ``routed_pool_inputs``, exactly, float32 and
+  bfloat16 (all four).
 * The weight round trip on the MRRP training tree, and ContextLocNet's
   object miner loaded from it against the JAX package's (rtol 1e-5).
 
@@ -40,7 +53,8 @@ import numpy as np
 import torch
 
 from torch_port_common import (
-    MRRP_VGG_YAML, MRRP_YAML, VGG_YAML, embeddings, jax_reference, jax_stages, make_batch,
+    MRRP_VGG_YAML, MRRP_YAML, VGG_YAML, check_int8_model, clip_to_image, embeddings,
+    jax_pool_emission, jax_reference, jax_stages, make_batch, np_quant_scale, np_quantize_tiles,
     random_params, routed_pool_inputs, tiny_cfg, torch_model_from_jax,
 )
 from wsovod_tpu.models.backbones.vgg import VGG16 as JaxVGG16
@@ -55,7 +69,9 @@ from wsovod_torch.models import build_model
 from wsovod_torch.models.backbones import VGG16
 from wsovod_torch.models.mil_heads import ObjectMiningOutputLayers
 from wsovod_torch.ops.roi_pool import (
-    roi_loop_pool_gated, roi_loop_pool_gated_bwd_plain, roi_pool_gated, roi_pool_gated_bwd_plain,
+    roi_loop_pool_gated, roi_loop_pool_gated_bwd_plain, roi_loop_pool_gated_int8,
+    roi_loop_pool_gated_maxabs, roi_pool_gated, roi_pool_gated_bwd_plain, roi_pool_gated_int8,
+    roi_pool_gated_maxabs,
 )
 from wsovod_torch.solver.build import param_labels
 from wsovod_torch.structures.instances import Instances
@@ -108,6 +124,66 @@ def test_loop_pool_plain_matches_jax():
     assert not want[:, :, 9].any()
     _check_loop_backward()
     _check_routed_pool()
+    _check_loop_and_routed_emissions()
+
+
+def _check_loop_and_routed_emissions():
+    """The ROILoopPool's maxabs and int8 emissions (rows 3 and 1) and the
+    routed ROIPool's against the TPU kernel in interpret mode, then against
+    the jnp reference pools and the formula (see the module docstring)."""
+    scale = 0.125
+    feat, rois, gate, src = routed_pool_inputs(7, c=256, n=16)
+    img_w, img_h = feat.shape[2] / scale, feat.shape[1] / scale
+    rois_c = clip_to_image(rois, img_w, img_h)
+    f, r, g, s = _t(feat), _t(rois_c), _t(gate), _t(src)
+    want, part = jax_pool_emission(feat, rois_c, gate, "maxabs", 128, src, loop=True)
+    got, m = roi_loop_pool_gated_maxabs(f, r, g, s, 0, 256, 3, 3, scale, 1.8)
+    np.testing.assert_array_equal(got.numpy(), want)
+    np.testing.assert_array_equal(m.numpy(), part.max(axis=(2, 4)))  # [3, B, n_ct, N, lanes]
+    got1, m1 = roi_loop_pool_gated_maxabs(f, r, g, s, 0, 256, 1, 3, scale, 1.8)
+    assert torch.equal(got1, got[:1]) and torch.equal(m1, m[:1])
+    want_q, want_s = jax_pool_emission(feat, rois_c, gate, "int8", 128, src, loop=True)
+    got_q, got_s = roi_loop_pool_gated_int8(f, r, g, s, 0, 256, 128, 3, 3, scale, 1.8)
+    assert got_q.dtype == torch.int8 and got_s.shape == (3, 2, 2, 16)
+    np.testing.assert_array_equal(got_q.numpy(), want_q)
+    np.testing.assert_array_equal(got_s.numpy(), want_s)
+    got1_q, got1_s = roi_loop_pool_gated_int8(f, r, g, s, 0, 256, 128, 1, 3, scale, 1.8)
+    assert torch.equal(got1_q, got_q[:1]) and torch.equal(got1_s, got_s[:1])
+    # the routed ROIPool (a per-ROI source copy of the branch-major concat):
+    # int8 against the TPU kernel; its maxabs, whose payload is the routed
+    # gated pool's, against the jnp reference below
+    want_q, want_s = jax_pool_emission(feat, rois_c, gate, "int8", 128, src)
+    got_q, got_s = roi_pool_gated_int8(f, r, g, 0, 256, 128, 3, scale, s)
+    np.testing.assert_array_equal(got_q.numpy(), want_q)
+    np.testing.assert_array_equal(got_s.numpy(), want_s)
+
+    # the jnp reference pools (edge boxes included) and the formula
+    c_base, c_take, c_tile = 4, 8, 4
+    feat, rois, gate, src = routed_pool_inputs(8)
+    ones = np.ones_like(gate)
+    for dtype, jdtype in ((torch.float32, jnp.float32), (torch.bfloat16, jnp.bfloat16)):
+        ft, rt, gt, st = _t(feat).to(dtype), _t(rois), _t(gate), _t(src)
+        loop = _jax_loop_gated(feat, rois, gate, src, c_base, c_take, scale, jdtype)
+        out, m = roi_loop_pool_gated_maxabs(ft, rt, gt, st, c_base, c_take, 3, 7, scale, 1.8)
+        np.testing.assert_array_equal(out.float().numpy(), loop)
+        np.testing.assert_array_equal(m.numpy(), np.abs(loop).max(axis=(3, 4, 5)))
+        q, mt = np_quantize_tiles(_jax_loop_gated(feat, rois, ones, src, c_base, c_take, scale,
+                                                  jdtype), c_tile)
+        got_q, got_s = roi_loop_pool_gated_int8(ft, rt, gt, st, c_base, c_take, c_tile, 3, 7,
+                                                scale, 1.8)
+        np.testing.assert_array_equal(got_q.numpy(), q)
+        np.testing.assert_array_equal(got_s.numpy(), np_quant_scale(gate[..., None], mt)
+                                      .transpose(0, 1, 3, 2))
+        routed = _jax_routed_pool(feat, rois, gate, src, c_base, c_take, scale, jdtype)
+        out, m = roi_pool_gated_maxabs(ft, rt, gt, c_base, c_take, 7, scale, st)
+        np.testing.assert_array_equal(out.float().numpy(), routed)
+        np.testing.assert_array_equal(m.numpy(), np.abs(routed).max(axis=(2, 3, 4)))
+        q, mt = np_quantize_tiles(_jax_routed_pool(feat, rois, ones, src, c_base, c_take, scale,
+                                                   jdtype), c_tile)
+        got_q, got_s = roi_pool_gated_int8(ft, rt, gt, c_base, c_take, c_tile, 7, scale, st)
+        np.testing.assert_array_equal(got_q.numpy(), q)
+        np.testing.assert_array_equal(got_s.numpy(), np_quant_scale(gate[..., None], mt)
+                                      .transpose(0, 2, 1))
 
 
 def _check_loop_backward():
@@ -179,6 +255,8 @@ def test_mrrp_inference_matches_jax():
     single-branch batch of three images."""
     _check_single_branch_batch_of_three()
     _check_mrrp_vgg_inference()
+    tm = check_int8_model(MRRP_YAML, level_ids=True)
+    assert tm.roi_heads.c_take == 256 and tm.roi_heads.box_head.fc1.n_chunks == 2
     batch = make_batch(0)
     for idx, n_copies in ((-1, 3), (1, 1)):
         feats, rpn, daf, (det, probs, boxes, props) = jax_stages(0, MRRP_YAML, idx)

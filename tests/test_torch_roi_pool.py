@@ -25,6 +25,25 @@ The gated ROIAlign (``wsovod_torch.ops.roi_align``), inside the same items:
   cotangents), float32, rtol and atol 1e-5; routed by branch, each copy's
   cotangent equals the unrouted backward of the ROIs that read it (rtol
   1e-6: float32 summation order).
+
+The emission modes of the gated ROIPool (``maxabs``, ``int8``, ``tile8``)
+and of the align (``int8``), inside the same items:
+
+* against the TPU kernels (``roi_pool_fused_batched(..., quant=...)``,
+  ``roi_align_fused_batched(..., quant="int8", hwnc_out=True)``) in Pallas
+  interpret mode, on boxes clipped to the image (ROADMAP 3.1), the same
+  ``c_tile`` on both sides, 3x3 bins (the kernels' interpret trace grows
+  with the bins): the ROIPool's payloads and scales exactly; the
+  align's raw float32 sums differ from the TPU kernel's by float32
+  summation order, so its payload is exact but where a sum lies within
+  that rounding of a .5 tie, one int8 step (such ties are counted: at most
+  1 in 2000 entries), its scales rtol 1e-5 (float32 summation order, as
+  the align's float checks above);
+* against the jnp reference pool (``roi_pool``, ``roi_align``) and the
+  quantize formula in numpy, 7x7 bins, with overhanging, degenerate,
+  invalid and gate-0 boxes and a channel chunk at 8: exact for the ROIPool (float32
+  and bfloat16; the maxabs payload is ``roi_pool_gated``'s bit for bit),
+  the align as against the TPU kernel.
 """
 
 import jax
@@ -33,8 +52,10 @@ import numpy as np
 import pytest
 import torch
 
-from torch_port_common import routed_pool_inputs
-from wsovod_tpu.ops.pallas.roi_align_fused import _fused_ad_bwd
+from torch_port_common import (
+    clip_to_image, jax_pool_emission, np_quant_scale, np_quantize_tiles, routed_pool_inputs,
+)
+from wsovod_tpu.ops.pallas.roi_align_fused import _fused_ad_bwd, roi_align_fused_batched
 from wsovod_tpu.ops.pallas.roi_align_kernel import roi_align_pallas
 from wsovod_tpu.ops.roi_pool import roi_align as jax_roi_align
 from wsovod_tpu.ops.roi_pool import roi_pool as jax_roi_pool
@@ -43,6 +64,7 @@ from wsovod_torch.ops import roi_pool as port
 
 SCALE = 0.125  # stride 8, the DC5 res5 scale
 P = 7
+PJ = 3  # bins per axis against the TPU kernels in interpret mode (their trace grows with them)
 
 
 def _inputs(seed, b=2, h=9, w=13, c=24, n=40):
@@ -109,6 +131,8 @@ def test_plain_gated_pool_exact():
     _check_align()
     _check_align_window()
     _check_align_backward()
+    _check_emissions()
+    _check_align_int8()
 
 
 def _t(x):
@@ -333,3 +357,98 @@ def test_wrapper_contract():
     leaf = feat.clone().requires_grad_(True)
     with pytest.raises(NotImplementedError):
         align.RoIAlignGatedFunction.apply(leaf, rois, gate, 0, 24, P, SCALE, 2, True, None, 32)
+
+
+def _check_emissions():
+    """The ROIPool's maxabs, int8 and tile8 emissions against the TPU
+    kernel in interpret mode (clipped boxes, 256 channels in two 128-channel
+    tiles), then against the jnp reference and the formula on the edge
+    boxes of ``_inputs``."""
+    feat, rois, gate = _inputs(5, c=256, n=24)
+    img_w, img_h = feat.shape[2] / SCALE, feat.shape[1] / SCALE
+    rois_c = clip_to_image(rois, img_w, img_h)
+    f, r, g = _t(feat), _t(rois_c), _t(gate)
+    # maxabs: the gated payload and max |payload| per (ROI, chunk)
+    want, part = jax_pool_emission(feat, rois_c, gate, "maxabs", 128)
+    got, m = port.roi_pool_gated_maxabs(f, r, g, 0, 256, PJ, SCALE)
+    np.testing.assert_array_equal(got.numpy(), want)
+    np.testing.assert_array_equal(m.numpy(), part.max(axis=(1, 3)))  # partials [B, n_ct, N, lanes]
+    # int8: payload and per-(ROI, c_tile) scales [B, n_ct, N]
+    want_q, want_s = jax_pool_emission(feat, rois_c, gate, "int8", 128)
+    got_q, got_s = port.roi_pool_gated_int8(f, r, g, 0, 256, 128, PJ, SCALE)
+    assert got_q.dtype == torch.int8 and got_s.shape == (2, 2, 24) and got_q.shape[2] == PJ
+    np.testing.assert_array_equal(got_q.numpy(), want_q)
+    np.testing.assert_array_equal(got_s.numpy(), want_s)
+    # tile8: the per-image quantized chunk's max pool, scale gate * s
+    want_q, want_s = jax_pool_emission(feat, rois_c, gate, "tile8", 128)
+    got_q, got_s = port.roi_pool_gated_tile8(f, r, g, 0, 256, PJ, SCALE)
+    np.testing.assert_array_equal(got_q.numpy(), want_q)
+    np.testing.assert_array_equal(got_s.numpy(), want_s[:, 0])  # every tile holds gate * s
+    assert np.abs(want_q).max() == 127 and (got_s.numpy()[gate == 0] == 0).all()
+
+    # against the jnp reference and the formula, edge boxes included
+    c_base, c_take, c_tile = 8, 16, 8
+    ones = np.ones_like(gate)
+    for dtype in ("float32", "bfloat16"):
+        tdt = getattr(torch, dtype)
+        ft = _t(feat).to(tdt)
+        pooled = _reference(feat, rois, gate, c_base, c_take, jnp.dtype(dtype))
+        out, m = port.roi_pool_gated_maxabs(ft, _t(rois), _t(gate), c_base, c_take, P, SCALE)
+        assert torch.equal(out, port.roi_pool_gated(ft, _t(rois), _t(gate), c_base, c_take, P,
+                                                    SCALE))
+        np.testing.assert_array_equal(out.float().numpy(), pooled)
+        np.testing.assert_array_equal(m.numpy(), np.abs(pooled).max(axis=(2, 3, 4)))
+        v = _reference(feat, rois, ones, c_base, c_take, jnp.dtype(dtype))  # pre-gate
+        q, mt = np_quantize_tiles(v, c_tile)
+        got_q, got_s = port.roi_pool_gated_int8(ft, _t(rois), _t(gate), c_base, c_take, c_tile, P,
+                                                SCALE)
+        np.testing.assert_array_equal(got_q.numpy(), q, err_msg=dtype)
+        np.testing.assert_array_equal(got_s.numpy(), np_quant_scale(gate[..., None], mt)
+                                      .transpose(0, 2, 1))
+    # tile8: the reference pool of the chunk quantized per image
+    f32 = feat[..., c_base:c_base + c_take]
+    s = np.maximum(np.abs(f32).max(axis=(1, 2, 3)) * np.float32(1 / 127.0), np.float32(1e-20))
+    fq = np.clip(np.round(f32 / s[:, None, None, None]), -127, 127).astype(np.float32)
+    want = _reference(fq, rois, ones, 0, c_take, jnp.float32)
+    got_q, got_s = port.roi_pool_gated_tile8(_t(feat), _t(rois), _t(gate), c_base, c_take, P,
+                                             SCALE)
+    np.testing.assert_array_equal(got_q.numpy(), want.astype(np.int8))
+    np.testing.assert_array_equal(got_s.numpy(), gate * s[:, None])
+    with pytest.raises(ValueError):
+        port.roi_pool_gated_int8(f, r, g, 0, 256, 96, P, SCALE)  # c_tile must divide c_take
+
+
+def _count_steps(got, want, what, frac=5e-4):
+    """int8 payloads equal except for entries one step apart (rounding ties
+    of float32 sums taken in another order), at most ``frac`` of them."""
+    d = np.abs(got.astype(np.int32) - want.astype(np.int32))
+    assert d.max() <= 1 and (d > 0).mean() <= frac, (what, d.max(), int((d > 0).sum()))
+
+
+def _check_align_int8():
+    """The align's int8 emission against ``roi_align_fused_batched(...,
+    quant="int8")`` in interpret mode (clipped boxes) and against the jnp
+    ``roi_align`` with the formula (edge boxes); the plain version is the
+    kernel's stand-in."""
+    feat, rois, gate = _align_inputs(6)
+    feat = np.concatenate([feat] * 11, -1)[..., :256]  # 256 channels: two 128-channel tiles
+    img_w, img_h = feat.shape[2] / SCALE, feat.shape[1] / SCALE
+    rois_c = clip_to_image(rois, img_w, img_h)
+    q, sc = jax.jit(lambda f, r, g: roi_align_fused_batched(
+        f, r, g, 0, PJ, SCALE, 2, c_take=256, c_tile=128, roi_block=1, interpret=True,
+        hwnc_out=True, quant="int8"))(jnp.asarray(feat), jnp.asarray(rois_c), jnp.asarray(gate))
+    got_q, got_s = align.roi_align_gated_int8(_t(feat), _t(rois_c), _t(gate), 0, 256, 128, PJ,
+                                              SCALE, 2)
+    _count_steps(got_q.numpy(), np.asarray(q).transpose(0, 3, 1, 2, 4), "vs the TPU kernel")
+    np.testing.assert_allclose(got_s.numpy(), np.asarray(sc), rtol=1e-5, atol=0)
+    # the jnp reference: its raw sums are 4x (s * s) its normalised output, exactly
+    c_base, c_take, c_tile = 8, 16, 8
+    raw = _jax_align(feat, rois, np.ones_like(gate), c_base, c_take, 2) * np.float32(4)
+    q, m = np_quantize_tiles(raw, c_tile)
+    got_q, got_s = align.roi_align_gated_int8(_t(feat), _t(rois), _t(gate), c_base, c_take,
+                                              c_tile, P, SCALE, 2)
+    _count_steps(got_q.numpy(), q, "vs the jnp reference")
+    want_s = np_quant_scale((gate * np.float32(0.25))[..., None], m).transpose(0, 2, 1)
+    np.testing.assert_allclose(got_s.numpy(), want_s, rtol=1e-5, atol=0)
+    # the payload is gate-free: the invalid and gate-0 rows have scale 0
+    assert (got_s[:, :, [7, 10]] == 0).all() and (got_s[:, :, :7] > 0).all()

@@ -8,13 +8,26 @@ Tolerances: proposals, probabilities and boxes rtol 1e-4 with box atol 1e-3;
 validity masks and classes exactly. The stage-wise test feeds the port's
 heads the JAX backbone features, so a discrete top-k or NMS flip shows up at
 the stage that made it instead of being loosened away; it also holds the ROI
-heads with the ``ROIAlignV2`` pooler to the JAX package's."""
+heads with the ``ROIAlignV2`` pooler to the JAX package's.
+
+The int8 inference (``TPU.DAN_FC1_QUANT`` and ``TPU.RPN_CONV_QUANT``
+``"int8"``), inside ``test_slice_matches_jax``: against the JAX package's,
+run with its pooler on the TPU path in interpret mode
+(``torch_port_common.jax_int8_forward``), both on its default route (bf16
+emission, fc1 quantizes) and on its ``WSOVOD_POOL_MAXABS`` route, which
+give the same numbers. The whole forward: proposals (the int8 RPN conv) as
+above; probabilities rtol 1e-4 and atol 1e-4, since torch's and XLA's
+float32 backbone sums may move an activation across a rounding tie of the
+int8 quantization, one step of 127; the ROI heads on the JAX features and
+proposals, where fc1's int8 product is bit for bit, as the float slice.
+Then the entry point over two batches."""
 
 import numpy as np
 import torch
 
 from torch_port_common import (
-    embeddings, jax_reference, jax_stages, make_batch, torch_model_from_jax,
+    TINY_YAML, check_int8_model, embeddings, jax_int8_forward, jax_reference, jax_stages,
+    make_batch, torch_model_from_jax,
 )
 from wsovod_torch.engine.evaluator import inference_on_dataset
 from wsovod_torch.structures.instances import Instances
@@ -35,10 +48,36 @@ def _top5(det, i):
 
 
 def test_slice_matches_jax():
-    """The forward on two inputs, then the entry point over two batches."""
+    """The forward on two inputs, then the entry point over two batches;
+    then the int8 inference."""
     for seed in (0, 5):
         _check_forward(seed)
     _check_inference_on_dataset()
+    _check_int8_slice()
+
+
+def _check_int8_slice():
+    """The tiny plain R18 with both int8 keys against the JAX package's int8
+    inference; then ``inference_on_dataset`` over two batches, the first
+    one's top detections the JAX package's."""
+    tm = check_int8_model(TINY_YAML)
+    jdet = jax_int8_forward(TINY_YAML)["default"][0]
+
+    def loader():
+        for seed in (0, 1):
+            b = make_batch(seed)
+            b["image_id"] = [f"{seed}_{i}" for i in range(2)]
+            b["orig_size"] = b["image_sizes"]
+            yield b
+
+    got = inference_on_dataset(tm, loader(), _Recorder(), embeddings=torch.from_numpy(embeddings()))
+    assert len(got) == 4 and all(len(s) and np.isfinite(s).all() for _, s, _ in got.values())
+    for i in range(2):
+        top = np.argsort(-jdet.scores[i][jdet.valid[i]], kind="stable")[:5]
+        tb, ts, tc = got[f"0_{i}"]
+        np.testing.assert_array_equal(tc[:5], jdet.classes[i][jdet.valid[i]][top])
+        np.testing.assert_allclose(tb[:5], jdet.boxes[i][jdet.valid[i]][top], rtol=RTOL,
+                                   atol=BOX_ATOL)
 
 
 def _check_forward(seed):

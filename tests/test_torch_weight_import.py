@@ -10,7 +10,9 @@
   port defaults, before and after merging the YAMLs; the keys it refuses by
   name; feature names the backbone does not give raise a ``ValueError``
   naming the key and the backbone's features; the ROIAlign poolers it
-  admits, and the windowed align it refuses for training.
+  admits, and the windowed align it refuses for training; the int8 fc1 and
+  RPN conv it admits with every pooler, for inference and training (which
+  ignores them), and their models load the same weights.
 """
 
 import os
@@ -94,10 +96,12 @@ from wsovod_torch.models import build_model
 from torch_port_common import MRRP_YAML, TINY_YAML, tiny_cfg, make_batch, embeddings
 batch = {{k: torch.from_numpy(v) for k, v in make_batch().items()}}
 for yaml in (TINY_YAML, MRRP_YAML):
-    model = build_model(tiny_cfg(wsovod_torch.get_cfg(), yaml), device="cpu", seed=0)
-    with torch.inference_mode():
-        det, probs, boxes = model(batch, embeddings=torch.from_numpy(embeddings()))
-    assert bool(det.valid.any())
+    for quant in ("none", "int8"):
+        model = build_model(tiny_cfg(wsovod_torch.get_cfg(), yaml, quant=quant), device="cpu",
+                            seed=0)
+        with torch.inference_mode():
+            det, probs, boxes = model(batch, embeddings=torch.from_numpy(embeddings()))
+        assert bool(det.valid.any())
 # the training modules: one iteration of the trainer
 import tempfile
 from wsovod_torch.engine.trainer import WSOVODTrainer
@@ -153,7 +157,20 @@ def _check_admitted_poolers():
     configs: built, and admitted for training with every
     ``TPU.ROI_ALIGN_KERNEL``, except the windowed one (``pallas_approx``)
     while the pooled stage trains, which ``check_train_supported`` refuses
-    by name (its TPU kernel has no VJP)."""
+    by name (its TPU kernel has no VJP). Both int8 keys with every pooler:
+    built (the ROILoopPool's chunk is 256 channels, the others' 512), the
+    reference weights load into the model with ``strict=True`` as into the
+    floating-point one, and admitted for training."""
+    back = state_dict_from_jax(_template())
+    for yaml in (TINY_YAML, MRRP_YAML, MRRP_VGG_YAML):
+        for pooler in ("ROIPool", "ROILoopPool", "ROIAlignV2"):
+            cfg = tiny_cfg(get_cfg(), yaml, pooler=pooler, quant="int8")
+            model = build_model(cfg, device="cpu", seed=None)
+            assert model.roi_heads.c_take == (256 if pooler == "ROILoopPool" else 512)
+            assert model.proposal_generator.rpn_head.conv.quant == "int8"
+            if yaml == TINY_YAML:
+                model.load_state_dict(back, strict=True)
+            check_train_supported(cfg)
     for yaml in (TINY_YAML, MRRP_YAML, MRRP_VGG_YAML):
         for pooler in ("ROIAlignV2", "ROIAlign"):
             cfg = tiny_cfg(get_cfg(), yaml, pooler=pooler)
@@ -233,8 +250,8 @@ def _check_port_defaults():
 
 _UNPORTED = [
     ("TEST.AUG.ENABLED", True),
-    ("TPU.DAN_FC1_QUANT", "int8"),
-    ("TPU.RPN_CONV_QUANT", "int8"),
+    ("TPU.DAN_FC1_QUANT", "fp8"),
+    ("TPU.RPN_CONV_QUANT", "int4"),
     ("TPU.BACKBONE_CONV_QUANT", "int8"),
     ("MODEL.ROI_BOX_HEAD.POOLER_TYPE", "ROIAlignRotated"),
     ("MODEL.META_ARCHITECTURE", "GeneralizedRCNN_WSOVOD_MixedDatasets"),

@@ -23,13 +23,14 @@ NUM_CLASSES = 5
 WEIGHT_DIM = 16
 
 
-def tiny_cfg(cfg, yaml: str = TINY_YAML, test_branch_idx=None, pooler=None):
+def tiny_cfg(cfg, yaml: str = TINY_YAML, test_branch_idx=None, pooler=None, quant="none"):
     """The golden-forward overrides (``tests/test_golden_forward.py``) on
     an R18 DC5 config (default the plain one; ``MRRP_YAML`` for MRRP, with
     ``test_branch_idx`` if given) or a VGG16 one (``VGG_YAML``,
     ``MRRP_VGG_YAML``; their RPN reads ``plain5``, which the YAMLs leave at
-    the base's ``res5``), float32, no int8, no TTA; ``pooler`` sets
-    ``POOLER_TYPE``."""
+    the base's ``res5``), float32, no TTA; ``pooler`` sets ``POOLER_TYPE``,
+    ``quant`` both ``TPU.DAN_FC1_QUANT`` and ``TPU.RPN_CONV_QUANT`` (default
+    no int8)."""
     cfg.merge_from_file(yaml)
     if "vgg" in cfg.MODEL.BACKBONE.NAME:
         cfg.MODEL.RPN.IN_FEATURES = ["plain5"]
@@ -43,8 +44,8 @@ def tiny_cfg(cfg, yaml: str = TINY_YAML, test_branch_idx=None, pooler=None):
     cfg.MODEL.ROI_BOX_HEAD.DAN_DIM = [64, 64]
     cfg.MODEL.ROI_BOX_HEAD.OPEN_VOCABULARY.WEIGHT_DIM = WEIGHT_DIM
     cfg.TPU.COMPUTE_DTYPE = "float32"
-    cfg.TPU.DAN_FC1_QUANT = "none"
-    cfg.TPU.RPN_CONV_QUANT = "none"
+    cfg.TPU.DAN_FC1_QUANT = quant
+    cfg.TPU.RPN_CONV_QUANT = quant
     cfg.TEST.AUG.ENABLED = False
     return cfg
 
@@ -147,22 +148,23 @@ def random_params(shapes, seed: int = 0):
 
 
 @functools.lru_cache(maxsize=None)
-def jax_reference(yaml: str = TINY_YAML, test_branch_idx=None, pooler=None):
+def jax_reference(yaml: str = TINY_YAML, test_branch_idx=None, pooler=None, quant="none"):
     """``(model, params)`` of the JAX package on the tiny config (``yaml``,
-    ``test_branch_idx`` and ``pooler`` as ``tiny_cfg``), with
+    ``test_branch_idx``, ``pooler`` and ``quant`` as ``tiny_cfg``), with
     ``random_params`` on the parameter tree of a training-mode ``init``
     (the object miner's parameters exist only there; they come last, so the
     other leaves' draws are those of the inference tree). The test branch
-    index and the pooler own no parameters (the trees are the same): with
-    either given, the parameters are those of ``jax_reference(yaml)``."""
+    index, the pooler and the quantization own no parameters (the trees are
+    the same): with any given, the parameters are those of
+    ``jax_reference(yaml)``."""
     import jax
     import jax.numpy as jnp
 
     from wsovod_tpu.config import get_cfg
     from wsovod_tpu.models import build_model
 
-    model = build_model(tiny_cfg(get_cfg(), yaml, test_branch_idx, pooler))
-    if test_branch_idx is not None or pooler is not None:
+    model = build_model(tiny_cfg(get_cfg(), yaml, test_branch_idx, pooler, quant))
+    if test_branch_idx is not None or pooler is not None or quant != "none":
         return model, jax_reference(yaml)[1]
     # the parameter shapes do not depend on the batch: trace the smallest
     batch = {k: jnp.asarray(v) for k, v in make_batch(b=1, s=2, size=32, gt=True).items()}
@@ -202,27 +204,222 @@ def _jax_stage_fn(yaml: str, test_branch_idx, pooler):
 
     def stages(m, b):
         forward = m(b, train=False, embeddings=emb, return_proposals=True)
-        feats = m.backbone(m._normalize(b["images"]))
-        rpn, _ = m.proposal_generator(feats, b["image_sizes"])
-        # the data-aware vector as GeneralizedRCNN_WSOVOD.__call__ makes it
-        f = feats[m.in_feature]
-        s = b["image_sizes"] // (b["images"].shape[1] // f.shape[1])
-        pixel_valid = (jnp.arange(f.shape[1])[None, :, None] < s[:, 0, None, None]) & (
-            jnp.arange(f.shape[2])[None, None, :] < s[:, 1, None, None])
-        daf = m.data_aware_head(f, pixel_valid=pixel_valid)
-        return feats, rpn, daf, forward
+        return (*_front(m, b), forward)
 
     return jax.jit(lambda p, b: model.apply(p, b, method=stages))
 
 
-def torch_model_from_jax(yaml: str = TINY_YAML, test_branch_idx=None, pooler=None):
+def _front(m, b):
+    """The JAX model's ``(features, rpn proposals, data-aware vector)`` on
+    batch ``b`` (the vector as ``GeneralizedRCNN_WSOVOD.__call__`` makes
+    it)."""
+    import jax.numpy as jnp
+
+    feats = m.backbone(m._normalize(b["images"]))
+    rpn, _ = m.proposal_generator(feats, b["image_sizes"])
+    f = feats[m.in_feature]
+    s = b["image_sizes"] // (b["images"].shape[1] // f.shape[1])
+    pixel_valid = (jnp.arange(f.shape[1])[None, :, None] < s[:, 0, None, None]) & (
+        jnp.arange(f.shape[2])[None, None, :] < s[:, 1, None, None])
+    return feats, rpn, m.data_aware_head(f, pixel_valid=pixel_valid)
+
+
+def torch_model_from_jax(yaml: str = TINY_YAML, test_branch_idx=None, pooler=None,
+                         quant="none"):
     """The port's model on the CPU with the JAX reference's parameters."""
     from wsovod_torch import get_cfg
     from wsovod_torch.models import build_model
     from wsovod_torch.utils.weight_import import state_dict_from_jax
 
     _, params = jax_reference(yaml)
-    model = build_model(tiny_cfg(get_cfg(), yaml, test_branch_idx, pooler), device="cpu",
+    model = build_model(tiny_cfg(get_cfg(), yaml, test_branch_idx, pooler, quant), device="cpu",
                         seed=None)
     model.load_state_dict(state_dict_from_jax(params), strict=True)
     return model
+
+
+@functools.lru_cache(maxsize=None)
+def jax_int8_forward(yaml: str = TINY_YAML, routes=("default", "maxabs")):
+    """The JAX package's int8 inference (``TPU.DAN_FC1_QUANT`` and
+    ``TPU.RPN_CONV_QUANT`` ``"int8"``) of ``jax_reference(yaml)``'s
+    parameters on ``make_batch(0)``, run as
+    ``tests/test_golden_eval_int8.py`` runs it: ``ROIPooler._on_tpu``
+    patched true and the fused pool kernels in Pallas interpret mode, so the
+    pooler takes its TPU path (on the CPU it would pool unfused, and fc1
+    would not be chunked, hence not int8), with one change of schedule: the
+    pool kernel runs one ROI per grid step (``roi_block=1``, its 8-ROI
+    source table repeated per ROI) instead of 8, which gives the same bits
+    (the tiny plain and MRRP R18's probabilities, bit for bit) and traces
+    in a quarter of the time. One traced program holds every
+    route of ``routes``: ``"default"`` (the bf16 emission, fc1 quantizes)
+    and ``"maxabs"`` (``WSOVOD_POOL_MAXABS=1``, the kernels' maxabs
+    emission), the environment toggle set while that route is traced.
+    Returns numpy ``{"stages": (features, rpn proposals with the int8 RPN
+    conv, data-aware vector), route: forward}``, ``forward`` as in
+    ``jax_stages``. Nothing in the JAX package changes: the patch and the
+    interpret flag are undone before this returns."""
+    import jax
+    import jax.numpy as jnp
+
+    from wsovod_tpu.models.poolers import ROIPooler
+    import wsovod_tpu.ops.pallas.roi_pool_fused as rpf
+
+    model, params = jax_reference(yaml, quant="int8")
+    emb = jnp.asarray(embeddings())
+    batch = {k: jnp.asarray(v) for k, v in make_batch(0).items()}
+
+    def routed(p, b):
+        out = {"stages": model.apply(p, b, method=_front)}
+        saved = os.environ.pop("WSOVOD_POOL_MAXABS", None)
+        try:
+            for route in routes:
+                if route == "maxabs":
+                    os.environ["WSOVOD_POOL_MAXABS"] = "1"
+                out[route] = model.apply(p, b, train=False, embeddings=emb, return_proposals=True)
+                os.environ.pop("WSOVOD_POOL_MAXABS", None)
+        finally:
+            if saved is not None:
+                os.environ["WSOVOD_POOL_MAXABS"] = saved
+        return out
+
+    pool = rpf.roi_pool_fused_batched
+
+    def one_roi_per_step(*args, src_tbl=None, roi_block=None, **kw):
+        if src_tbl is not None:  # [B, N / 8] -> [B, N]
+            src_tbl = jnp.repeat(src_tbl, 8, axis=1)
+        return pool(*args, src_tbl=src_tbl, roi_block=1, **kw)
+
+    on_tpu, interpret = ROIPooler.__dict__["_on_tpu"], rpf._INTERPRET
+    ROIPooler._on_tpu = staticmethod(lambda: True)
+    rpf._INTERPRET = True
+    rpf.roi_pool_fused_batched = one_roi_per_step
+    try:
+        return jax.tree_util.tree_map(np.array, jax.jit(routed)(params, batch))
+    finally:
+        ROIPooler._on_tpu = on_tpu
+        rpf._INTERPRET = interpret
+        rpf.roi_pool_fused_batched = pool
+
+
+def check_int8_model(yaml, level_ids=False):
+    """The port's int8 model (``tiny_cfg(..., quant="int8")``) against
+    ``jax_int8_forward(yaml)`` on both routes: the RPN on the JAX features
+    and the proposals (the int8 RPN conv) rtol 1e-4; the whole forward's
+    probabilities rtol 1e-4 and atol 1e-4 (torch's and XLA's float32
+    backbone sums may move an activation across a rounding tie of the int8
+    quantization, one step of 127) and its top-5 detections; the ROI heads
+    on the JAX package's features, proposals and data-aware vector, where
+    fc1's int8 product is bit for bit, rtol 1e-4 and atol 1e-6 as the float
+    slices. Returns the port's model, whose pooler's chunks came as
+    ``(payload, maxabs)`` pairs. ``level_ids``: the
+    ROI heads' proposals carry the RPN's ``level_ids`` (MRRP), the SAM rows
+    on branch 0, as the JAX inference draws no random branch."""
+    from wsovod_torch.structures.instances import Instances
+
+    ref = jax_int8_forward(yaml)
+    batch = make_batch(0)
+    tm = torch_model_from_jax(yaml, quant="int8")
+    pairs = []
+    hook = tm.roi_heads.pooler.register_forward_hook(
+        lambda mod, inp, out: pairs.append(isinstance(out, tuple) and out[1].dim() == 2))
+    tb = {k: torch.from_numpy(v) for k, v in batch.items()}
+    with torch.inference_mode():
+        tdet, tprobs, tboxes, tprops = tm(tb, embeddings=torch.from_numpy(embeddings()),
+                                          return_proposals=True)
+    hook.remove()
+    assert pairs and all(pairs), pairs
+    (feats, rpn, daf) = ref["stages"]
+    tfeats = {k: torch.from_numpy(v) for k, v in feats.items()}
+    sizes = torch.from_numpy(batch["image_sizes"])
+    with torch.inference_mode():
+        t = tm.proposal_generator(tfeats, sizes)
+    np.testing.assert_array_equal(t.valid.numpy(), rpn.valid)
+    np.testing.assert_allclose(t.objectness_logits.numpy(), rpn.objectness_logits, rtol=1e-4,
+                               atol=1e-5)
+    np.testing.assert_allclose(t.proposal_boxes.numpy(), rpn.proposal_boxes, rtol=1e-4,
+                               atol=1e-3)
+    for route in ("default", "maxabs"):
+        jdet, jprobs, jboxes, jprops = ref[route]
+        np.testing.assert_array_equal(tprops[2].numpy(), jprops[2])
+        np.testing.assert_allclose(tprops[0].numpy(), jprops[0], rtol=1e-4, atol=1e-3)
+        np.testing.assert_allclose(tprops[1].numpy(), jprops[1], rtol=1e-4, atol=1e-5)
+        np.testing.assert_allclose(tprobs.numpy(), jprobs, rtol=1e-4, atol=1e-4, err_msg=route)
+        np.testing.assert_allclose(tboxes.numpy(), jboxes, rtol=1e-4, atol=1e-3)
+        for i in range(batch["images"].shape[0]):
+            v = jdet.valid[i]
+            top = np.argsort(np.where(v, -jdet.scores[i], np.inf), kind="stable")[:5]
+            top = top[v[top]]
+            assert len(top) == 5
+            np.testing.assert_array_equal(tdet.valid[i].numpy()[top], True)
+            np.testing.assert_array_equal(tdet.classes[i].numpy()[top], jdet.classes[i][top])
+            np.testing.assert_allclose(tdet.scores[i].numpy()[top], jdet.scores[i][top],
+                                       rtol=1e-4, atol=1e-4)
+        # the ROI heads on the JAX package's features, proposals and vector
+        extra = {}
+        if level_ids:
+            extra["level_ids"] = torch.from_numpy(np.concatenate(
+                [rpn.level_ids, np.zeros_like(batch["sam_valid"], np.int32)], 1))
+        props = Instances(torch.from_numpy(jprops[2]), proposal_boxes=torch.from_numpy(jprops[0]),
+                          objectness_logits=torch.from_numpy(jprops[1]), **extra)
+        with torch.inference_mode():
+            _, hprobs, hboxes = tm.roi_heads.inference(
+                tfeats, props, sizes, data_aware_features=torch.from_numpy(daf),
+                embeddings=torch.from_numpy(embeddings()))
+        np.testing.assert_allclose(hprobs.numpy(), jprobs, rtol=1e-4, atol=1e-6, err_msg=route)
+        np.testing.assert_allclose(hboxes.numpy(), jboxes, rtol=1e-4, atol=1e-3)
+    return tm
+
+
+# ------------------------------------------------ the emission modes' checks
+def np_quantize_tiles(v: np.ndarray, c_tile: int):
+    """The int8 emission's formula in numpy float32, independent of the
+    port's code: per ``c_tile`` channels of ``v [..., P, P, c]``, ``m = max
+    |v|``, ``round(v * (127 / m))`` (half to even; 0 where ``m <= 1e-20``)
+    as int8; returns ``(q [..., P, P, c], m [..., c / c_tile])``."""
+    *lead, p, _, c = v.shape
+    t = v.astype(np.float32).reshape(*lead, p, p, c // c_tile, c_tile)
+    m = np.abs(t).max(axis=(-4, -3, -1))
+    inv = np.where(m > 1e-20, np.float32(127.0) / np.where(m > 0, m, 1), 0).astype(np.float32)
+    q = np.round(t * inv[..., None, None, :, None]).astype(np.int8)
+    return q.reshape(v.shape), m
+
+
+def np_quant_scale(gate: np.ndarray, m: np.ndarray) -> np.ndarray:
+    """``(gate * m) * (1 / 127)`` in float32."""
+    return (gate.astype(np.float32) * m) * np.float32(1.0 / 127.0)
+
+
+def jax_pool_emission(feat, rois, gate, quant, c_tile, src=None, loop=False, scale=0.125, p=3):
+    """``roi_pool_fused_batched`` (the TPU kernel) in Pallas interpret mode
+    on the whole channel range, under ``jax.jit`` as the pooler runs it (XLA
+    makes its ``/ 127.0`` a multiplication by the float32 reciprocal), with
+    one ROI per grid step (``roi_block=1``, so ``src_tbl`` is the per-ROI
+    source copy ``src [B, N]``; the block size only sets how many ROIs a
+    step unrolls, and one traces in a quarter of the time) and ``p x p``
+    bins (default 3: the kernel's trace grows with its bins; the tests hold
+    the port at 7 against the jnp reference). Returns numpy, the payload in
+    the port's layout ``[(3,) B, N, p, p, c]``."""
+    import jax
+    import jax.numpy as jnp
+
+    from wsovod_tpu.ops.pallas.roi_pool_fused import roi_pool_fused_batched
+
+    def run(f, r, g, s):
+        return roi_pool_fused_batched(f, r, g, 0, p, scale, c_take=f.shape[-1], c_tile=c_tile,
+                                      roi_block=1, loop_pool=loop, quant=quant, src_tbl=s,
+                                      interpret=True)
+
+    out = jax.jit(run)(jnp.asarray(feat), jnp.asarray(rois), jnp.asarray(gate),
+                       None if src is None else jnp.asarray(src, jnp.int32))
+    payload, second = (np.asarray(x) for x in out)
+    axes = (0, 1, 4, 2, 3, 5) if loop else (0, 3, 1, 2, 4)  # hwnc -> n-major
+    return payload.transpose(axes), second
+
+
+def clip_to_image(rois: np.ndarray, img_w: float, img_h: float) -> np.ndarray:
+    """Boxes clipped to the image: the TPU kernel's default wide path is
+    exact only for those (ROADMAP 3.1)."""
+    out = rois.copy()
+    out[..., 0::2] = out[..., 0::2].clip(0, img_w)
+    out[..., 1::2] = out[..., 1::2].clip(0, img_h)
+    return out

@@ -5,8 +5,9 @@ load unchanged, with four port defaults:
 
 * ``MODEL.DEVICE = "cuda"``;
 * ``TPU.DAN_FC1_QUANT = "none"`` and ``TPU.RPN_CONV_QUANT = "none"`` (the
-  JAX package defaults both to its TPU-only int8 paths, which the port does
-  not have);
+  JAX package defaults both to its int8 inference paths; the port has them
+  too, as the keys' ``"int8"``, and keeps its floating-point defaults so
+  that its measurements stay comparable until a benchmark measures both);
 * ``TPU.COMPUTE_DTYPE = "bfloat16"`` (parameters stay float32).
 
 ``check_supported`` refuses every key that asks for a path the port does not
@@ -286,9 +287,10 @@ def get_cfg() -> CN:
 
     # ------------------------------------------------------- TPU-specific
     # Keys of the JAX package's TPU paths, kept so that every YAML merges
-    # into the same tree in both packages. The port reads COMPUTE_DTYPE and
-    # ROI_ALIGN_KERNEL and refuses the int8 paths (check_supported); the
-    # others have no effect.
+    # into the same tree in both packages. The port reads COMPUTE_DTYPE,
+    # ROI_ALIGN_KERNEL, DAN_FC1_QUANT and RPN_CONV_QUANT ("none" or "int8",
+    # int8 at inference only), refuses BACKBONE_CONV_QUANT "int8"
+    # (check_supported); the others have no effect.
     _C.TPU = CN()
     _C.TPU.MESH_SHAPE = [-1]
     _C.TPU.MESH_AXES = ["data"]
@@ -300,10 +302,10 @@ def get_cfg() -> CN:
     _C.TPU.PARAM_DTYPE = "float32"
     _C.TPU.SAM_COMPUTE_DTYPE = "bfloat16"
     _C.TPU.ROI_ALIGN_KERNEL = "fused"
-    # port default "none" (the JAX package defaults to its int8 fc1)
+    # port default "none" (the JAX package defaults to its int8 fc1: "int8")
     _C.TPU.DAN_FC1_QUANT = "none"
     _C.TPU.UNFUSED_ROI_CHUNK = 512
-    # port default "none" (the JAX package defaults to its int8 RPN conv)
+    # port default "none" (the JAX package defaults to its int8 RPN conv: "int8")
     _C.TPU.RPN_CONV_QUANT = "none"
     _C.TPU.BACKBONE_CONV_QUANT = "none"
 
@@ -334,7 +336,9 @@ def check_supported(cfg: CN) -> None:
     other the exact one). MRRP is ported at the backbone's last stage (res5
     or plain5), with any of them routed by branch, with all branches at test
     (``TEST_BRANCH_IDX = -1``) or one (``>= 0``). ``ROILoopPool`` also runs
-    without MRRP; then each ROI pools from its own image.
+    without MRRP; then each ROI pools from its own image. ``TPU.DAN_FC1_QUANT``
+    and ``TPU.RPN_CONV_QUANT`` take ``"none"`` or ``"int8"`` (int8 inference,
+    with every pooler); ``TPU.BACKBONE_CONV_QUANT`` only ``"none"``.
 
     ``MODEL.RPN.IN_FEATURES`` and ``MODEL.ROI_HEADS.IN_FEATURES`` must name
     features the backbone gives: a ``ValueError`` names the key and the
@@ -391,9 +395,9 @@ def check_supported(cfg: CN) -> None:
          m.ROI_BOX_HEAD.OPEN_VOCABULARY.USE_BIAS,
          abs(m.ROI_BOX_HEAD.OPEN_VOCABULARY.USE_BIAS) <= 1e-9, "classifier bias"),
         ("TPU.DAN_FC1_QUANT", cfg.TPU.DAN_FC1_QUANT,
-         cfg.TPU.DAN_FC1_QUANT == "none", "int8 fc1"),
+         cfg.TPU.DAN_FC1_QUANT in ("none", "int8"), "fc1 quantizations other than int8"),
         ("TPU.RPN_CONV_QUANT", cfg.TPU.RPN_CONV_QUANT,
-         cfg.TPU.RPN_CONV_QUANT == "none", "int8 RPN conv"),
+         cfg.TPU.RPN_CONV_QUANT in ("none", "int8"), "RPN conv quantizations other than int8"),
         ("TPU.BACKBONE_CONV_QUANT", cfg.TPU.BACKBONE_CONV_QUANT,
          cfg.TPU.BACKBONE_CONV_QUANT == "none", "int8 backbone convs"),
         ("TPU.COMPUTE_DTYPE", cfg.TPU.COMPUTE_DTYPE,
@@ -424,7 +428,10 @@ def check_train_supported(cfg: CN) -> None:
     ROIAlign (``TPU.ROI_ALIGN_KERNEL = "pallas_approx"``) trains only while
     the pooled stage is frozen: its TPU kernel, ``roi_align_pallas``, has no
     VJP in the JAX package (ROADMAP 3.10). ``WSOVOD.BBOX_REFINE`` is the
-    trainer's to handle (``engine/trainer.py``)."""
+    trainer's to handle (``engine/trainer.py``). ``TPU.DAN_FC1_QUANT`` and
+    ``TPU.RPN_CONV_QUANT`` ``"int8"`` are admitted and training ignores
+    them: fc1 and the RPN conv train in floating point, as in the JAX
+    package (``box_head.py:245``, ``rpn.py:171``)."""
     check_supported(cfg)
     m = cfg.MODEL
     ir = cfg.WSOVOD.INSTANCE_REFINEMENT

@@ -17,6 +17,19 @@ chunk's weight is a strided ``[F, P*P*c]`` view in the pooled chunk's
 ``(h, w, c)`` order (float32 reads it in place; bf16 casts it, one plain
 copy per chunk). Its ``state_dict`` keeps the reference torch layout
 ``[F, C*P*P]`` in ``(c, h, w)`` order; the re-layout happens once, at load.
+
+With ``TPU.DAN_FC1_QUANT`` ``"int8"`` fc1 is int8 at inference, as
+``ChunkedDenseGeneral(quant="int8")`` (``wsovod_tpu/models/box_head.py:
+127-177``): per chunk, the activation scale per (ROI, chunk) ``s_a =
+max(maxabs, 1e-8) / 127`` and ``x_q = clip(round(x / s_a), -127, 127)``;
+the chunk's weight quantized per output column, ``s_w = max(max |w|,
+1e-8) / 127`` over its ``(h, w, c)``; the int8 product summed in int32
+(``layers.int_mm``), scaled by ``s_a`` then ``s_w`` in float32, the chunks'
+partials summed in float32, then the bias. A chunk may also arrive as a
+``(payload, maxabs)`` pair (the pool kernels' maxabs emission: the maxabs
+is not recomputed) or an ``(int8 payload, scale)`` pair (the product is
+scaled by ``scale`` directly). The quantized weight is cached per chunk
+until the parameter changes. Training is floating point whatever the key.
 """
 
 from __future__ import annotations
@@ -27,7 +40,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .layers import Linear
+from .layers import Linear, _div127, int_mm
 
 _MM_OUT_DTYPE = "dtype" in torch.ops.aten.mm.overloads()
 
@@ -78,15 +91,21 @@ def matmul_f32(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 
 class ChunkedLinear(nn.Module):
-    """fc1 over pooled ``(h, w, c)``, fed one channel chunk per call."""
+    """fc1 over pooled ``(h, w, c)``, fed one channel chunk per call; with
+    ``quant`` ``"int8"`` int8 at inference (see the module docstring)."""
 
-    def __init__(self, in_channels: int, pooled: int, out_features: int, c_take: int):
+    def __init__(self, in_channels: int, pooled: int, out_features: int, c_take: int,
+                 quant: str = "none"):
         super().__init__()
         assert in_channels % c_take == 0, (in_channels, c_take)
+        if quant not in ("none", "int8"):
+            raise ValueError(f"unknown fc1 quant {quant!r}")
         self.c, self.p, self.f, self.c_take = in_channels, pooled, out_features, c_take
+        self.quant = quant
         self.n_chunks = in_channels // c_take
         self.weight = nn.Parameter(torch.empty(out_features, in_channels * pooled * pooled))
         self.bias = nn.Parameter(torch.empty(out_features))
+        self._qcache = {}  # chunk -> (weight version and storage, w_q, s_w)
 
     # reference layout [F, (c, h, w)] <-> chunk-major [F, (k, h, w, c_in)]
     def from_reference(self, w: torch.Tensor) -> torch.Tensor:
@@ -112,23 +131,57 @@ class ChunkedLinear(nn.Module):
         """Chunk ``k``'s weight, a strided ``[F, P*P*c_take]`` view."""
         return self.weight.view(self.f, self.n_chunks, -1)[:, k]
 
-    def forward(self, chunk: torch.Tensor, k: int) -> torch.Tensor:
+    def quantized_weight(self, k: int):
+        """Chunk ``k``'s weight quantized per output column: ``(w_q int8 [F,
+        P*P*c_take], s_w [F] float32)``, cached until the parameter changes."""
+        w = self.weight
+        key = (w._version, w.data_ptr(), w.device)
+        hit = self._qcache.get(k)
+        if hit is None or hit[0] != key:
+            wk = self.chunk_weight(k).detach().float()
+            s_w = _div127(wk.abs().amax(dim=1).clamp(min=1e-8))
+            w_q = torch.round(wk / s_w[:, None]).clamp(-127, 127).to(torch.int8)
+            hit = self._qcache[k] = (key, w_q, s_w)
+        return hit[1], hit[2]
+
+    def forward(self, chunk, k: int, int8: bool = False) -> torch.Tensor:
         """Partial product of chunk ``k`` (``[..., P, P, c_take]``), float32
-        ``[..., F]``, without the bias."""
+        ``[..., F]``, without the bias. ``int8`` (with ``quant`` ``"int8"``)
+        or a ``(payload, maxabs)`` or ``(int8 payload, scale)`` pair takes
+        the int8 product."""
+        if isinstance(chunk, tuple) or (int8 and self.quant == "int8"):
+            return self._forward_int8(chunk, k)
         lead = chunk.shape[:-3]
         a = chunk.reshape(-1, self.p * self.p * self.c_take)
         return matmul_f32(a, self.chunk_weight(k)).reshape(lead + (self.f,))
 
+    def _forward_int8(self, chunk, k: int) -> torch.Tensor:
+        x = chunk[0] if isinstance(chunk, tuple) else chunk
+        lead = x.shape[:-3]
+        a = x.reshape(-1, self.p * self.p * self.c_take)
+        w_q, s_w = self.quantized_weight(k)
+        if x.dtype == torch.int8:  # (int8 payload, scale): the scale is the activation's
+            y = int_mm(a, w_q).float() * chunk[1].reshape(-1, 1).float() * s_w
+        else:
+            # max |x| and x / s_a in float32 without a float32 copy of the chunk
+            ax = (chunk[1].reshape(-1, 1).float() if isinstance(chunk, tuple)
+                  else a.abs().amax(dim=1, keepdim=True).float())
+            s_a = _div127(ax.clamp(min=1e-8))
+            x_q = torch.div(a, s_a).round_().clamp_(-127, 127).to(torch.int8)
+            y = int_mm(x_q, w_q).float() * s_a * s_w
+        return y.reshape(lead + (self.f,))
+
 
 class DiscriminativeAdaptationNeck(nn.Module):
     def __init__(self, in_channels: int, pooled: int, fc_dims=(4096, 4096), c_take: int = 512,
-                 dtype: torch.dtype = torch.float32, dropout: float = 0.5):
+                 dtype: torch.dtype = torch.float32, dropout: float = 0.5,
+                 fc1_quant: str = "none"):
         super().__init__()
         if len(fc_dims) != 2:
             raise ValueError(f"the port's DAN has fc1 and fc2; got DAN_DIM {list(fc_dims)}")
         self.dtype = dtype
         self.dropout = dropout
-        self.fc1 = ChunkedLinear(in_channels, pooled, fc_dims[0], c_take)
+        self.fc1 = ChunkedLinear(in_channels, pooled, fc_dims[0], c_take, fc1_quant)
         self.fc2 = Linear(fc_dims[0], fc_dims[1])
 
     @property
@@ -144,16 +197,18 @@ class DiscriminativeAdaptationNeck(nn.Module):
         mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
         return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype, device=x.device))
 
-    def forward(self, chunks: Iterable[torch.Tensor], row_gate: Optional[torch.Tensor] = None,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    def forward(self, chunks: Iterable, row_gate: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None, int8: bool = False) -> torch.Tensor:
         """``chunks``: the pooled channel chunks in channel order (consumed
-        lazily, one alive at a time) -> ``[B, N, fc_dims[-1]]`` in the compute
-        dtype. ``row_gate [B, N]`` scales fc1's accumulated output before the
-        bias; ``generator`` draws the training dropout masks."""
+        lazily, one alive at a time; tensors or the pairs of the module
+        docstring) -> ``[B, N, fc_dims[-1]]`` in the compute dtype.
+        ``row_gate [B, N]`` scales fc1's accumulated output before the bias;
+        ``generator`` draws the training dropout masks; ``int8`` asks for
+        the int8 fc1 where ``DAN_FC1_QUANT`` is ``"int8"`` (inference)."""
         acc = None
         n = 0
         for k, chunk in enumerate(chunks):
-            y = self.fc1(chunk, k)
+            y = self.fc1(chunk, k, int8)
             acc = y if acc is None else acc + y
             n += 1
         if n != self.fc1.n_chunks:

@@ -77,11 +77,104 @@ class Conv2d(nn.Conv2d):
         return self._conv_forward(x, self.weight.to(x.dtype), b)
 
 
-def QuantizableConv3x3(in_channels: int, features: int) -> Conv2d:
-    """The RPN head's 3x3 conv with bias, padding 1. Only the floating-point
-    path of the reference's ``QuantizableConv3x3`` is ported; the int8 path
-    (``TPU.RPN_CONV_QUANT``) is refused by ``config.check_supported``."""
-    return Conv2d(in_channels, features, 3, padding=1)
+INV127 = 1.0 / 127.0  # applied as a float32 multiply, as XLA compiles `/ 127.0`
+
+INT_MM_CALLS = 0  # int8 GEMMs run by int_mm (fc1's and the RPN conv's)
+
+
+def _div127(x: torch.Tensor) -> torch.Tensor:
+    """``x / 127.0`` as the JAX package's jitted programs compute it: XLA
+    turns the division by the constant into a multiplication by its float32
+    reciprocal."""
+    return x * torch.tensor(INV127, dtype=torch.float32, device=x.device)
+
+
+def int_mm(a: torch.Tensor, b_t: torch.Tensor) -> torch.Tensor:
+    """``a @ b_t.T`` for int8 ``a [M, K]`` and ``b_t [F, K]``, summed in
+    int32, through ``torch._int_mm`` (cuBLASLt's int8 GEMM on the card; the
+    JAX package's int8 ``einsum`` with ``preferred_element_type=int32``).
+    cuBLASLt takes M > 16 and K, F multiples of 8, and the second operand
+    column-major (a row-major one fails with CUBLAS_STATUS_NOT_SUPPORTED):
+    ``b_t`` row-major, passed transposed. Shapes outside that are padded
+    with zero rows and columns, which add nothing to the sums, and the
+    result is cut back to ``[M, F]``."""
+    global INT_MM_CALLS
+    m, k = a.shape
+    f = b_t.shape[0]
+    pad_m, pad_k, pad_f = max(0, 17 - m), -k % 8, -f % 8
+    if pad_m or pad_k:
+        a = torch.nn.functional.pad(a, (0, pad_k, 0, pad_m))
+    if pad_k or pad_f:
+        b_t = torch.nn.functional.pad(b_t, (0, pad_k, 0, pad_f))
+    out = torch._int_mm(a.contiguous(), b_t.contiguous().t())
+    INT_MM_CALLS += 1
+    return out[:m, :f] if (pad_m or pad_f) else out
+
+
+def quantize_act_weight(x: torch.Tensor, weight: torch.Tensor):
+    """Symmetric dynamic int8 quantization
+    (``wsovod_tpu/models/layers.py::_quantize_act_weight``): per image
+    activation scales ``s_x [B, 1, 1, 1]`` (``x [B, H, W, C]``; 1 where max
+    |x| <= 1e-20) and per output channel weight scales ``s_k [F]`` of a torch
+    conv weight ``[F, C, kh, kw]`` (1 where max |k| <= 1e-20).
+    ``round(x / s_x)`` (half to even) is not clipped, the weight's is clipped
+    to [-127, 127]. Returns ``(x_q int8, s_x, k_q int8 [F, C, kh, kw],
+    s_k)``."""
+    xf = x.float()
+    s_x = xf.abs().amax(dim=(1, 2, 3), keepdim=True)
+    s_x = torch.where(s_x > 1e-20, _div127(s_x), torch.ones_like(s_x))
+    xq = torch.round(xf / s_x).to(torch.int8)
+    kf = weight.float()
+    s_k = _div127(kf.abs().amax(dim=(1, 2, 3)))
+    s_k = torch.where(s_k > 1e-20, s_k, torch.ones_like(s_k))
+    kq = torch.round(kf / s_k[:, None, None, None]).clamp(-127, 127).to(torch.int8)
+    return xq, s_x, kq, s_k
+
+
+def conv3x3_shifted_int8(x: torch.Tensor, weight: torch.Tensor,
+                         bias: Optional[torch.Tensor] = None, dilation: int = 1) -> torch.Tensor:
+    """3x3 SAME conv of ``x [B, H, W, C]`` (NHWC) with a torch weight ``[F,
+    C, 3, 3]`` as 9 shifted int8 GEMMs ``[B*H*W, C] x [C, F]`` summed in
+    int32 (``wsovod_tpu/models/layers.py::conv3x3_shifted_int8``), then one
+    dequant ``(acc * s_x) * s_k`` in float32, the bias added in float32 and
+    the result cast to ``x``'s dtype: ``[B, H, W, F]``. The int32 sums are
+    exact, so the result matches the JAX function bit for bit."""
+    b, h, w, c = x.shape
+    d = dilation
+    xq, s_x, kq, s_k = quantize_act_weight(x, weight)
+    xp = torch.nn.functional.pad(xq, (0, 0, d, d, d, d))
+    acc = None
+    for dy in range(3):
+        for dx in range(3):
+            sl = xp[:, dy * d : dy * d + h, dx * d : dx * d + w, :].reshape(-1, c)
+            t = int_mm(sl, kq[:, :, dy, dx])
+            acc = t if acc is None else acc + t
+    y = acc.float().reshape(b, h, w, -1) * s_x * s_k
+    if bias is not None:
+        y = y + bias.float()
+    return y.to(x.dtype)
+
+
+class QuantizableConv3x3(Conv2d):
+    """The RPN head's 3x3 conv with bias, padding 1 (the reference's
+    ``QuantizableConv3x3``, the same parameters, so the weight import is
+    unchanged). ``forward(x)`` runs it in floating point; with ``quant``
+    ``"int8"`` (``TPU.RPN_CONV_QUANT``), ``forward_nhwc(x, int8=True)``
+    runs ``conv3x3_shifted_int8`` on an NHWC input, as the JAX package does
+    at inference."""
+
+    def __init__(self, in_channels: int, features: int, quant: str = "none"):
+        super().__init__(in_channels, features, 3, padding=1)
+        if quant not in ("none", "int8"):
+            raise ValueError(f"unknown conv quant {quant!r}")
+        self.quant = quant
+
+    def forward_nhwc(self, x: torch.Tensor, int8: bool = False) -> torch.Tensor:
+        """``x [B, H, W, C]`` -> ``[B, H, W, F]``: int8 when ``int8`` and
+        the conv is quantized, else the floating-point conv."""
+        if int8 and self.quant == "int8":
+            return conv3x3_shifted_int8(x, self.weight, self.bias)
+        return self(x.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
 
 
 class Linear(nn.Linear):

@@ -22,7 +22,11 @@ stack, the refineries the ROI row (``wsovod_tpu/models/roi_heads.py:305-310,
 342``). Inference pools and runs only the ROI row: the JAX package pools all
 three there too, then keeps only the ROI row (``roi_feats, _ = ...`` at
 ``roi_heads.py:518-520``); the DAN works row by row, so the ROI row's result
-is the same."""
+is the same.
+
+With ``TPU.DAN_FC1_QUANT`` ``"int8"`` fc1 is int8 at inference only (the
+JAX package's ``quant=self.fc1_quant if not train``); the ROIPool and the
+ROILoopPool then hand it ``(payload, maxabs)`` chunks (``poolers.py``)."""
 
 from __future__ import annotations
 
@@ -64,7 +68,8 @@ class WSOVODROIHeads(nn.Module):
                  roi_matcher_iou_thresholds=(0.5,), roi_matcher_iou_labels=(0, 1),
                  object_mining_weight: float = 1.0, object_mining_mean_loss: bool = True,
                  instance_refinement_weight: float = 1.0, box_reg_loss_weight: float = 1.0,
-                 box_reg_loss_type: str = "smooth_l1_weighted", smooth_l1_beta: float = 0.0):
+                 box_reg_loss_type: str = "smooth_l1_weighted", smooth_l1_beta: float = 0.0,
+                 dan_fc1_quant: str = "none"):
         super().__init__()
         self.in_features = tuple(in_features)
         self.bbox_reg_weights = tuple(bbox_reg_weights)
@@ -81,10 +86,11 @@ class WSOVODROIHeads(nn.Module):
         self.test_nms_thresh = test_nms_thresh
         self.test_topk_per_image = test_topk_per_image
         self.test_per_class_topk = test_per_class_topk
-        self.c_take = chunk_width(in_channels)
+        self.c_take = chunk_width(in_channels, pooler.pooler_type, dan_fc1_quant)
         self.pooler = pooler
         self.box_head = DiscriminativeAdaptationNeck(
-            in_channels, pooler.output_size, tuple(dan_fc_dims), self.c_take, dtype
+            in_channels, pooler.output_size, tuple(dan_fc_dims), self.c_take, dtype,
+            fc1_quant=dan_fc1_quant,
         )
         self.object_miner = ObjectMiningOutputLayers(
             self.box_head.output_dim, num_classes, mean_loss=object_mining_mean_loss,
@@ -117,10 +123,12 @@ class WSOVODROIHeads(nn.Module):
         gate = (proposals.objectness_logits.float() + 1.0) * valid.float()
         pool_gate, row_gate = (valid.float(), gate) if train else (gate, None)
         rows = 3 if train and self.object_miner.context else 1
+        int8 = not train and self.box_head.fc1.quant == "int8"  # fc1 trains in floating point
         chunks = self.pooler.chunks(feat, proposals.proposal_boxes, pool_gate, valid, self.c_take,
-                                    level_ids=proposals.fields().get("level_ids"), rows=rows)
+                                    level_ids=proposals.fields().get("level_ids"), rows=rows,
+                                    maxabs=self.pooler.emits_maxabs(int8))
         # [(3,) B, P, F]
-        box_features = self.box_head(chunks, row_gate=row_gate, generator=generator)
+        box_features = self.box_head(chunks, row_gate=row_gate, generator=generator, int8=int8)
         if data_aware_features is not None:
             box_features = box_features + data_aware_features[:, None, :].to(box_features.dtype)
         return (box_features[0] if rows == 3 else box_features), box_features
@@ -224,4 +232,5 @@ def build_roi_heads(cfg, pooler: ROIPooler, in_channels: int, dtype: torch.dtype
         box_reg_loss_weight=rb.BBOX_REG_LOSS_WEIGHT,
         box_reg_loss_type=rb.BBOX_REG_LOSS_TYPE,
         smooth_l1_beta=rb.SMOOTH_L1_BETA,
+        dan_fc1_quant=cfg.TPU.DAN_FC1_QUANT,
     )

@@ -12,7 +12,9 @@ Under MRRP the backbone feature ``[n_br * B, h, w, C]`` is split back into
 with a test branch index ``>= 0``, the JAX package's ``mrrp_fast``), one
 anchor level per branch (all at the feature's stride), one head shared by
 all levels, then the group top-k of ``find_top_rpn_proposals_group``. The
-train losses run over the anchors of all levels."""
+train losses run over the anchors of all levels. With
+``TPU.RPN_CONV_QUANT`` ``"int8"`` the head's 3x3 conv is int8 at inference
+(``layers.conv3x3_shifted_int8``) and floating point in training."""
 
 from __future__ import annotations
 
@@ -33,21 +35,28 @@ from .proposal_utils import find_top_rpn_proposals, find_top_rpn_proposals_group
 
 class StandardRPNHead(nn.Module):
     """Shared 3x3 conv + ReLU, then 1x1 objectness (A) and 1x1 anchor deltas
-    (A*4), d2's names (``conv``, ``objectness_logits``, ``anchor_deltas``)."""
+    (A*4), d2's names (``conv``, ``objectness_logits``, ``anchor_deltas``).
+    With ``conv_quant`` ``"int8"`` (``TPU.RPN_CONV_QUANT``) the 3x3 conv runs
+    as 9 shifted int8 GEMMs at inference, each level quantized per image;
+    training keeps the floating-point conv (``wsovod_tpu/models/rpn.py:171``)."""
 
-    def __init__(self, in_channels: int, num_anchors: int, box_dim: int = 4):
+    def __init__(self, in_channels: int, num_anchors: int, box_dim: int = 4,
+                 conv_quant: str = "none"):
         super().__init__()
         self.num_anchors = num_anchors
-        self.conv = QuantizableConv3x3(in_channels, in_channels)
+        self.conv = QuantizableConv3x3(in_channels, in_channels, conv_quant)
         self.objectness_logits = Conv2d(in_channels, num_anchors, 1)
         self.anchor_deltas = Conv2d(in_channels, num_anchors * box_dim, 1)
 
-    def forward(self, features: Sequence[torch.Tensor]):
+    def forward(self, features: Sequence[torch.Tensor], train: bool = False):
         """Per-level NHWC features -> (logits ``[B, H, W, A]``, deltas
         ``[B, H, W, A*4]``), NHWC like the reference."""
         logits, deltas = [], []
         for f in features:
-            t = F.relu(self.conv(f.permute(0, 3, 1, 2)))
+            if self.conv.quant == "int8" and not train:
+                t = F.relu(self.conv.forward_nhwc(f, int8=True)).permute(0, 3, 1, 2)
+            else:
+                t = F.relu(self.conv(f.permute(0, 3, 1, 2)))
             logits.append(self.objectness_logits(t).permute(0, 2, 3, 1))
             deltas.append(self.anchor_deltas(t).permute(0, 2, 3, 1))
         return logits, deltas
@@ -76,7 +85,8 @@ class WSOVODRPN_V2(nn.Module):
                  mrrp_on: bool = False, mrrp_num_branch: int = 3, mrrp_test_all: bool = True,
                  pre_nms_topk_train=2048, post_nms_topk_train=1024, batch_size_per_image=256,
                  positive_fraction=0.5, iou_thresholds=(0.3, 0.7), iou_labels=(0, -1, 1),
-                 smooth_l1_beta=0.0, loss_weight_cls=1.0, loss_weight_loc=1.0):
+                 smooth_l1_beta=0.0, loss_weight_cls=1.0, loss_weight_loc=1.0,
+                 conv_quant: str = "none"):
         super().__init__()
         self.mrrp_on = mrrp_on
         self.mrrp_num_branch = mrrp_num_branch
@@ -104,7 +114,8 @@ class WSOVODRPN_V2(nn.Module):
             strides=strides[:n_lvl] if len(strides) >= n_lvl else strides * n_lvl,
             offset=anchor_offset,
         )
-        self.rpn_head = StandardRPNHead(in_channels, self.anchor_generator.num_anchors[0])
+        self.rpn_head = StandardRPNHead(in_channels, self.anchor_generator.num_anchors[0],
+                                        conv_quant=conv_quant)
 
     def forward(self, features: Dict[str, torch.Tensor], image_sizes: torch.Tensor,
                 train: bool = False) -> Union[Instances, Tuple[Instances, RPNAux]]:
@@ -114,7 +125,7 @@ class WSOVODRPN_V2(nn.Module):
         if self.mrrp_on:
             n_br = self.mrrp_num_branch if (train or self.mrrp_test_all) else 1
             feats = [c for f in feats for c in torch.chunk(f, n_br, dim=0)]
-        logits_l, deltas_l = self.rpn_head(feats)
+        logits_l, deltas_l = self.rpn_head(feats, train=train)
         grid_sizes = [(f.shape[1], f.shape[2]) for f in feats]
         anchors_l = self.anchor_generator.grid_anchors(grid_sizes, feats[0].device)
         flat_logits, flat_deltas, proposals_l = [], [], []
@@ -197,4 +208,5 @@ def build_proposal_generator(cfg, in_channels: int, strides: Sequence[int]) -> W
         smooth_l1_beta=rpn.SMOOTH_L1_BETA,
         loss_weight_cls=rpn.LOSS_WEIGHT,
         loss_weight_loc=rpn.BBOX_REG_LOSS_WEIGHT * rpn.LOSS_WEIGHT,
+        conv_quant=cfg.TPU.RPN_CONV_QUANT,
     )

@@ -63,10 +63,12 @@ from typing import Optional, Tuple
 
 import torch
 
-from .roi_pool import _check, _check_kernel_args, _gate_cotangent, _kernel, _ptr, _src32
+from .roi_pool import (_check, _check_c_tile, _check_kernel_args, _gate_cotangent, _kernel,
+                       _launch, _ptr, _src32, quant_scale, quantize_tiles)
 
 LAUNCHES = 0
 BWD_LAUNCHES = 0
+INT8_LAUNCHES = 0
 
 WINDOW = 32  # roi_align_pallas's default window, TPU.ROI_ALIGN_KERNEL = "pallas_approx"
 
@@ -154,13 +156,13 @@ def _copies(src: Optional[torch.Tensor], b: int, n: int, device) -> torch.Tensor
 
 
 def _align_plain(f: torch.Tensor, idx: torch.Tensor, wt: torch.Tensor, copies: torch.Tensor,
-                 p: int, s: int) -> torch.Tensor:
-    """Ungated ROIAlign sums divided by ``s * s``, float32, of ``f [S, H,
-    W, c]`` (float32) for ``m`` ROIs of metadata ``idx``/``wt [m, 2, K, 2]``
-    reading copies ``copies [m]``: ``[m, P, P, c]``. The sample loop, the
-    corner order and the sums follow ``wsovod_tpu/ops/roi_pool.py::
-    _roi_align_impl``, whose division by ``s * s`` XLA makes a
-    multiplication by the float32 reciprocal."""
+                 p: int, s: int, normalise: bool = True) -> torch.Tensor:
+    """Ungated ROIAlign sums divided by ``s * s`` (the raw sums without
+    ``normalise``), float32, of ``f [S, H, W, c]`` (float32) for ``m`` ROIs
+    of metadata ``idx``/``wt [m, 2, K, 2]`` reading copies ``copies [m]``:
+    ``[m, P, P, c]``. The sample loop, the corner order and the sums follow
+    ``wsovod_tpu/ops/roi_pool.py::_roi_align_impl``, whose division by ``s *
+    s`` XLA makes a multiplication by the float32 reciprocal."""
     _, h, w, c = f.shape
     flat = f.reshape(-1, c)
     base = (copies * (h * w))[:, None, None]
@@ -176,6 +178,8 @@ def _align_plain(f: torch.Tensor, idx: torch.Tensor, wt: torch.Tensor, copies: t
                     term = flat[at] * (yw[:, :, None, a] * xw[:, None, :, e])[..., None]
                     val = term if val is None else val + term
             acc = acc + val
+    if not normalise:
+        return acc
     return acc * torch.full((), 1.0 / (s * s), dtype=torch.float32, device=f.device)
 
 
@@ -263,6 +267,90 @@ def roi_align_gated(
         raise RuntimeError(f"roi_align_gated kernel launch failed: cudaError {rc}")
     LAUNCHES += 1
     return out
+
+
+def roi_align_gated_int8_plain(
+    feat: torch.Tensor,
+    rois: torch.Tensor,
+    gate: torch.Tensor,
+    c_base: int,
+    c_take: int,
+    c_tile: int,
+    output_size: int = 7,
+    spatial_scale: float = 1.0,
+    sampling_ratio: int = 2,
+    aligned: bool = True,
+    src: Optional[torch.Tensor] = None,
+    window: Optional[int] = None,
+    max_elems: int = 1 << 26,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The plain version of the int8 emission: ``quantize_tiles`` of the
+    raw float32 sample sums (before ``1 / s**2`` and the gate), and the
+    scales ``((gate * (1 / s**2)) * m) * (1 / 127)`` ``[B, c_take /
+    c_tile, N]``."""
+    _, h, w, _ = feat.shape
+    b, n = rois.shape[:2]
+    p, s = output_size, samples_per_axis(sampling_ratio)
+    f = feat[..., c_base : c_base + c_take].float()
+    idx, wt = sample_meta(rois, spatial_scale, p, sampling_ratio, aligned, h, w, window)
+    idx, wt = idx.reshape(b * n, *idx.shape[2:]), wt.reshape(b * n, *wt.shape[2:])
+    copies = _copies(src, b, n, feat.device)
+    step = max(1, max_elems // max(1, p * p * c_take))
+    q = torch.empty((b * n, p, p, c_take), dtype=torch.int8, device=feat.device)
+    m = torch.empty((b * n, c_take // c_tile), dtype=torch.float32, device=feat.device)
+    for lo in range(0, b * n, step):
+        sl = slice(lo, min(b * n, lo + step))
+        q[sl], m[sl] = quantize_tiles(_align_plain(f, idx[sl], wt[sl], copies[sl], p, s, False),
+                                      c_tile)
+    scale_out = gate.float() * torch.full((), 1.0 / (s * s), dtype=torch.float32,
+                                          device=feat.device)
+    scales = quant_scale(scale_out[..., None], m.reshape(b, n, -1))
+    return q.reshape(b, n, p, p, c_take), scales.permute(0, 2, 1).contiguous()
+
+
+def roi_align_gated_int8(
+    feat: torch.Tensor,
+    rois: torch.Tensor,
+    gate: torch.Tensor,
+    c_base: int,
+    c_take: int,
+    c_tile: int,
+    output_size: int = 7,
+    spatial_scale: float = 1.0,
+    sampling_ratio: int = 2,
+    aligned: bool = True,
+    src: Optional[torch.Tensor] = None,
+    window: Optional[int] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The align's int8 emission (``roi_align_fused_batched(...,
+    quant="int8")``, ``roi_align_fused.py:192-205``): ``(payload int8 [B, N,
+    P, P, c_take], scales [B, c_take / c_tile, N] float32)``, per (ROI,
+    ``c_tile``) the max ``m`` of the raw float32 sample sums, the payload
+    ``round(acc * (127 / m))`` and the scale with the gate and ``1 / s**2``
+    folded in. The kernel sums in the plain version's order without FMAs, so
+    the two agree bit for bit. No pooler path reaches it: the JAX pooler
+    emits the align in the feature dtype and fc1 quantizes."""
+    global INT8_LAUNCHES
+    _check(feat, rois, gate, c_base, c_take, src)
+    _check_c_tile(c_take, c_tile)
+    if feat.device.type == "cpu":
+        return roi_align_gated_int8_plain(feat, rois, gate, c_base, c_take, c_tile, output_size,
+                                          spatial_scale, sampling_ratio, aligned, src, window)
+    if feat.device.type != "cuda":
+        raise ValueError(f"roi_align_gated_int8 runs on CPU or CUDA tensors, not {feat.device}")
+    _check_kernel_args(feat, c_base, c_take, "roi_align_gated_int8")
+    s_copies, h, w, c = feat.shape
+    b, n = rois.shape[:2]
+    out = torch.empty((b, n, output_size, output_size, c_take), dtype=torch.int8,
+                      device=feat.device)
+    scales = torch.empty((b, c_take // c_tile, n), dtype=torch.float32, device=feat.device)
+    _launch("roi_align_gated.cu", "wsovod_roi_align_gated_int8", feat.dtype,
+            [feat, rois.float().contiguous(), None if src is None else _src32(src, s_copies),
+             gate.float().contiguous(), out, scales],
+            [b, h, w, c, n, c_base, c_take, c_tile, output_size, samples_per_axis(sampling_ratio),
+             int(bool(aligned)), int(window or 0)], [spatial_scale], "roi_align_gated_int8")
+    INT8_LAUNCHES += 1
+    return out, scales
 
 
 def roi_align_gated_bwd_plain(

@@ -61,6 +61,11 @@ LAUNCHES = 0
 LOOP_LAUNCHES = 0
 BWD_LAUNCHES = 0
 LOOP_BWD_LAUNCHES = 0
+MAXABS_LAUNCHES = 0
+INT8_LAUNCHES = 0
+TILE8_LAUNCHES = 0
+LOOP_MAXABS_LAUNCHES = 0
+LOOP_INT8_LAUNCHES = 0
 
 _DTYPE_SUFFIX = {torch.bfloat16: "bf16", torch.float32: "f32"}
 
@@ -755,3 +760,271 @@ class RoILoopPoolGatedFunction(torch.autograd.Function):
                                                  need_feat=ctx.needs_input_grad[0],
                                                  need_gate=ctx.needs_input_grad[2])
         return g_feat, None, g_gate, None, None, None, None, None, None, None
+
+
+# ---------------------------------------------------------------- emissions
+# The pools' other emission modes (roi_pool_fused_batched's quant="maxabs",
+# "int8" and "tile8"; kernels/csrc/roi_pool_common.cuh): what the int8 fc1
+# reads. The pooler runs only maxabs (at inference with
+# TPU.DAN_FC1_QUANT = "int8"); int8 and tile8 are reached by no pooler path,
+# in the JAX package only through an environment toggle or its tests.
+
+INV127 = 1.0 / 127.0  # applied as a float32 multiply, as XLA compiles `/ 127.0`
+
+
+def quant_scale(gate: torch.Tensor, m: torch.Tensor) -> torch.Tensor:
+    """The scale an int8 emission writes: ``(gate * m) * (1 / 127)`` in
+    float32 (``gate`` broadcast against the tile maxima ``m``)."""
+    inv127 = torch.tensor(INV127, dtype=torch.float32, device=m.device)
+    return gate.float() * m * inv127
+
+
+def quantize_tiles(v: torch.Tensor, c_tile: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The int8 emission of pre-gate values ``v [..., P, P, c]``: per
+    ``c_tile`` channels ``m = max |v|`` over the tile's bins and channels,
+    the payload ``round(v * (127 / m))`` (half to even; 0 where ``m <=
+    1e-20``) as int8 ``[..., P, P, c]``, and ``m [..., c / c_tile]``
+    float32. ``127 / m`` is a true division (torch's scalar ``/`` tensor is
+    a reciprocal times the scalar)."""
+    *lead, p, _, c = v.shape
+    t = v.float().reshape(*lead, p, p, c // c_tile, c_tile)
+    m = t.abs().amax(dim=(-4, -3, -1))
+    inv = torch.where(m > 1e-20, torch.full_like(m, 127.0) / m, torch.zeros_like(m))
+    q = torch.round(t * inv[..., None, None, :, None]).to(torch.int8)
+    return q.reshape(v.shape), m
+
+
+def quantize_per_image(f: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """tile8's per-image quantization of a feature chunk ``f [B, H, W, c]``
+    (``roi_pool_fused.py:1677-1691``): ``s = max(max |f| / 127, 1e-20)`` per
+    image and ``clip(round(f / s), -127, 127)`` as int8; returns ``(q, s
+    [B])``."""
+    f32 = f.float()
+    s = f32.abs().amax(dim=(1, 2, 3)) * torch.tensor(INV127, dtype=torch.float32,
+                                                     device=f.device)
+    s = s.clamp(min=1e-20)
+    return torch.round(f32 / s[:, None, None, None]).clamp(-127, 127).to(torch.int8), s
+
+
+def _check_c_tile(c_take: int, c_tile: int):
+    if c_tile <= 0 or c_tile % 2 or c_take % c_tile:
+        raise ValueError(f"c_tile {c_tile} must be even and divide c_take {c_take}")
+
+
+def roi_pool_gated_maxabs_plain(feat, rois, gate, c_base, c_take, output_size=7,
+                                spatial_scale=1.0, src=None):
+    """``(roi_pool_gated_plain(...), its max |payload| per ROI [B, N]
+    float32)``."""
+    out = roi_pool_gated_plain(feat, rois, gate, c_base, c_take, output_size, spatial_scale,
+                               src=src)
+    return out, out.float().abs().amax(dim=(2, 3, 4))
+
+
+def roi_pool_gated_int8_plain(feat, rois, gate, c_base, c_take, c_tile, output_size=7,
+                              spatial_scale=1.0, src=None):
+    """``(int8 payload [B, N, P, P, c_take], scales [B, c_take / c_tile, N]
+    float32)``: ``quantize_tiles`` of the ungated pool, the float32 gate
+    folded into the scales."""
+    ones = torch.ones_like(gate, dtype=torch.float32)
+    v = roi_pool_gated_plain(feat, rois, ones, c_base, c_take, output_size, spatial_scale,
+                             src=src)
+    q, m = quantize_tiles(v, c_tile)
+    return q, quant_scale(gate[..., None], m).permute(0, 2, 1).contiguous()
+
+
+def roi_pool_gated_tile8_plain(feat, rois, gate, c_base, c_take, output_size=7,
+                               spatial_scale=1.0):
+    """``(int8 payload [B, N, P, P, c_take], scale [B, N] float32)``: the
+    max pool of the chunk quantized per image (``quantize_per_image``), its
+    empty bins 0, and ``gate * s``."""
+    q, s = quantize_per_image(feat[..., c_base : c_base + c_take])
+    ones = torch.ones_like(gate, dtype=torch.float32)
+    out = roi_pool_gated_plain(q.float(), rois, ones, 0, c_take, output_size, spatial_scale)
+    return out.to(torch.int8), gate.float() * s[:, None]
+
+
+def _launch(source, entry, dtype, pointers, ints, floats=(), what="pool"):
+    """Launch ``entry`` (the full C name, without a dtype suffix when
+    ``dtype`` is None) of ``csrc/<source>`` on the current stream with
+    ``pointers`` (tensors or None), int and float arguments; raises on a
+    launch error."""
+    from ..kernels import load
+
+    fn = getattr(load(source), entry if dtype is None else f"{entry}_{_DTYPE_SUFFIX[dtype]}")
+    fn.argtypes = ([ctypes.c_void_p] * len(pointers) + [ctypes.c_int] * len(ints)
+                   + [ctypes.c_float] * len(floats) + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    dev = next(t.device for t in pointers if t is not None)
+    # temporaries are freed when the caller returns, while the kernel may
+    # still run: the caching allocator reuses their memory only in stream order
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = fn(*[_ptr(t) for t in pointers], *[int(i) for i in ints],
+                *[float(f) for f in floats], stream)
+    if rc != 0:
+        raise RuntimeError(f"{what} kernel launch failed: cudaError {rc}")
+
+
+def _pool_kernel_inputs(feat, rois, gate, c_base, c_take, src, spatial_scale, what):
+    """The checks and device inputs shared by the ROIPool emissions on the
+    card: ``(region, src32)``."""
+    if feat.device.type != "cuda":
+        raise ValueError(f"{what} runs on CPU or CUDA tensors, not {feat.device}")
+    _check_kernel_args(feat, c_base, c_take, what)
+    region = round_region(rois, spatial_scale).contiguous()
+    return region, (None if src is None else _src32(src, feat.shape[0]))
+
+
+def roi_pool_gated_maxabs(feat, rois, gate, c_base, c_take, output_size=7, spatial_scale=1.0,
+                          src=None):
+    """``roi_pool_gated``'s payload and its max |payload| per (ROI, chunk),
+    ``[B, N]`` float32 (``quant="maxabs"``, reduced over the chunk in the
+    block): the int8 fc1's activation maxabs without a second read of the
+    chunk. The payload is ``roi_pool_gated``'s bit for bit."""
+    global MAXABS_LAUNCHES
+    _check(feat, rois, gate, c_base, c_take, src)
+    if feat.device.type == "cpu":
+        return roi_pool_gated_maxabs_plain(feat, rois, gate, c_base, c_take, output_size,
+                                           spatial_scale, src)
+    region, src32 = _pool_kernel_inputs(feat, rois, gate, c_base, c_take, src, spatial_scale,
+                                        "roi_pool_gated_maxabs")
+    s_copies, h, w, c = feat.shape
+    b, n = rois.shape[:2]
+    out = torch.empty((b, n, output_size, output_size, c_take), dtype=feat.dtype,
+                      device=feat.device)
+    maxabs = torch.empty((b, n), dtype=torch.float32, device=feat.device)
+    _launch("roi_pool_gated.cu", "wsovod_roi_pool_gated_maxabs", feat.dtype,
+            [feat, region, src32, gate.to(feat.dtype).contiguous(), out, maxabs],
+            [b, h, w, c, n, c_base, c_take, output_size],
+            [float(torch.tensor(NEG_INF, dtype=feat.dtype))], "roi_pool_gated_maxabs")
+    MAXABS_LAUNCHES += 1
+    return out, maxabs
+
+
+def roi_pool_gated_int8(feat, rois, gate, c_base, c_take, c_tile, output_size=7,
+                        spatial_scale=1.0, src=None):
+    """The int8 emission (``quant="int8"``): ``(payload int8 [B, N, P, P,
+    c_take], scales [B, c_take / c_tile, N] float32)``, per (ROI,
+    ``c_tile``) the pre-gate maxabs ``m``, ``round(v * (127 / m))`` and the
+    scale ``gate * m / 127`` (``roi_pool_gated_int8_plain``)."""
+    global INT8_LAUNCHES
+    _check(feat, rois, gate, c_base, c_take, src)
+    _check_c_tile(c_take, c_tile)
+    if feat.device.type == "cpu":
+        return roi_pool_gated_int8_plain(feat, rois, gate, c_base, c_take, c_tile, output_size,
+                                         spatial_scale, src)
+    region, src32 = _pool_kernel_inputs(feat, rois, gate, c_base, c_take, src, spatial_scale,
+                                        "roi_pool_gated_int8")
+    s_copies, h, w, c = feat.shape
+    b, n = rois.shape[:2]
+    out = torch.empty((b, n, output_size, output_size, c_take), dtype=torch.int8,
+                      device=feat.device)
+    scales = torch.empty((b, c_take // c_tile, n), dtype=torch.float32, device=feat.device)
+    _launch("roi_pool_gated.cu", "wsovod_roi_pool_gated_int8", feat.dtype,
+            [feat, region, src32, gate.float().contiguous(), out, scales],
+            [b, h, w, c, n, c_base, c_take, c_tile, output_size],
+            [float(torch.tensor(NEG_INF, dtype=feat.dtype))], "roi_pool_gated_int8")
+    INT8_LAUNCHES += 1
+    return out, scales
+
+
+def roi_pool_gated_tile8(feat, rois, gate, c_base, c_take, output_size=7, spatial_scale=1.0):
+    """tile8 (``quant="tile8"``, the plain ROIPool without ``src``): the
+    chunk quantized per image in torch (``quantize_per_image``), then the
+    kernel's max pool over the int8 chunk; ``(payload int8 [B, N, P, P,
+    c_take], scale [B, N] = gate * s float32)``. Its precision is per
+    (image, chunk), coarser than the int8 emission's."""
+    global TILE8_LAUNCHES
+    _check(feat, rois, gate, c_base, c_take)
+    if feat.device.type == "cpu":
+        return roi_pool_gated_tile8_plain(feat, rois, gate, c_base, c_take, output_size,
+                                          spatial_scale)
+    region, _ = _pool_kernel_inputs(feat, rois, gate, c_base, c_take, None, spatial_scale,
+                                    "roi_pool_gated_tile8")
+    q, s = quantize_per_image(feat[..., c_base : c_base + c_take])
+    q = q.contiguous()
+    _, h, w, _ = q.shape
+    b, n = rois.shape[:2]
+    out = torch.empty((b, n, output_size, output_size, c_take), dtype=torch.int8,
+                      device=feat.device)
+    _launch("roi_pool_gated.cu", "wsovod_roi_pool_gated_tile8", None, [q, region, out],
+            [b, h, w, c_take, n, 0, c_take, output_size], (), "roi_pool_gated_tile8")
+    TILE8_LAUNCHES += 1
+    return out, gate.float() * s[:, None]
+
+
+def roi_loop_pool_gated_maxabs_plain(feat, rois, gate, src, c_base, c_take, rows=3,
+                                     output_size=7, spatial_scale=1.0, context_ratio=1.8):
+    """``(roi_loop_pool_gated_plain(...), max |payload| per row and ROI
+    [rows, B, N] float32)``."""
+    out = roi_loop_pool_gated_plain(feat, rois, gate, src, c_base, c_take, rows, output_size,
+                                    spatial_scale, context_ratio)
+    return out, out.float().abs().amax(dim=(3, 4, 5))
+
+
+def roi_loop_pool_gated_int8_plain(feat, rois, gate, src, c_base, c_take, c_tile, rows=3,
+                                   output_size=7, spatial_scale=1.0, context_ratio=1.8):
+    """``(int8 payload [rows, B, N, P, P, c_take], scales [rows, B, c_take /
+    c_tile, N] float32)``, per row as ``roi_pool_gated_int8_plain``."""
+    ones = torch.ones_like(gate, dtype=torch.float32)
+    v = roi_loop_pool_gated_plain(feat, rois, ones, src, c_base, c_take, rows, output_size,
+                                  spatial_scale, context_ratio)
+    q, m = quantize_tiles(v, c_tile)
+    return q, quant_scale(gate[..., None], m).permute(0, 1, 3, 2).contiguous()
+
+
+def _loop_kernel_inputs(feat, rois, gate, src, c_base, c_take, spatial_scale, context_ratio,
+                        what):
+    _check_kernel_args(feat, c_base, c_take, what)
+    _, h, w, _ = feat.shape
+    geo = loop_geometry(rois, spatial_scale, h, w, context_ratio).contiguous()
+    return geo, _src32(src, feat.shape[0])
+
+
+def roi_loop_pool_gated_maxabs(feat, rois, gate, src, c_base, c_take, rows=3, output_size=7,
+                               spatial_scale=1.0, context_ratio=1.8):
+    """``roi_loop_pool_gated``'s payload and its max |payload| per row and
+    (ROI, chunk), ``[rows, B, N]`` float32 (``quant="maxabs"``)."""
+    global LOOP_MAXABS_LAUNCHES
+    _check_loop(feat, rois, gate, src, c_base, c_take, rows)
+    if feat.device.type == "cpu":
+        return roi_loop_pool_gated_maxabs_plain(feat, rois, gate, src, c_base, c_take, rows,
+                                                output_size, spatial_scale, context_ratio)
+    geo, src32 = _loop_kernel_inputs(feat, rois, gate, src, c_base, c_take, spatial_scale,
+                                     context_ratio, "roi_loop_pool_gated_maxabs")
+    _, h, w, c = feat.shape
+    b, n = rois.shape[:2]
+    out = torch.empty((rows, b, n, output_size, output_size, c_take), dtype=feat.dtype,
+                      device=feat.device)
+    maxabs = torch.empty((rows, b, n), dtype=torch.float32, device=feat.device)
+    _launch("roi_loop_pool_gated.cu", "wsovod_roi_loop_pool_gated_maxabs", feat.dtype,
+            [feat, geo, src32, gate.to(feat.dtype).contiguous(), out, maxabs],
+            [b, h, w, c, n, c_base, c_take, output_size, rows], (), "roi_loop_pool_gated_maxabs")
+    LOOP_MAXABS_LAUNCHES += 1
+    return out, maxabs
+
+
+def roi_loop_pool_gated_int8(feat, rois, gate, src, c_base, c_take, c_tile, rows=3,
+                             output_size=7, spatial_scale=1.0, context_ratio=1.8):
+    """The loop pool's int8 emission: ``(payload int8 [rows, B, N, P, P,
+    c_take], scales [rows, B, c_take / c_tile, N] float32)``, per row as
+    ``roi_pool_gated_int8``."""
+    global LOOP_INT8_LAUNCHES
+    _check_loop(feat, rois, gate, src, c_base, c_take, rows)
+    _check_c_tile(c_take, c_tile)
+    if feat.device.type == "cpu":
+        return roi_loop_pool_gated_int8_plain(feat, rois, gate, src, c_base, c_take, c_tile, rows,
+                                              output_size, spatial_scale, context_ratio)
+    geo, src32 = _loop_kernel_inputs(feat, rois, gate, src, c_base, c_take, spatial_scale,
+                                     context_ratio, "roi_loop_pool_gated_int8")
+    _, h, w, c = feat.shape
+    b, n = rois.shape[:2]
+    out = torch.empty((rows, b, n, output_size, output_size, c_take), dtype=torch.int8,
+                      device=feat.device)
+    scales = torch.empty((rows, b, c_take // c_tile, n), dtype=torch.float32, device=feat.device)
+    _launch("roi_loop_pool_gated.cu", "wsovod_roi_loop_pool_gated_int8", feat.dtype,
+            [feat, geo, src32, gate.float().contiguous(), out, scales],
+            [b, h, w, c, n, c_base, c_take, c_tile, output_size, rows], (),
+            "roi_loop_pool_gated_int8")
+    LOOP_INT8_LAUNCHES += 1
+    return out, scales

@@ -37,6 +37,12 @@ Phases, in order; any failure exits nonzero before the last line is printed:
    slice's; the align's int8 at the ``align`` slice's shapes (and routed,
    windowed, at a reduced N). Then the int8 fc1's GEMM (``torch._int_mm``)
    on one chunk and the int8 RPN conv, each against its bf16 counterpart.
+   Then the level-routed ROIPool and ROILoopPool (kernel 2.5) against their
+   plain versions at the ``swin-fpn`` slices' level shapes (p2 ``[2, 172,
+   264, 256]`` to p5 ``[2, 22, 33, 256]``), 5024 ROIs per image from the
+   same box mix with the edge rows, each on its level by d2's rule (every
+   level gets some): bfloat16 and float32, the loop rows 1 and 3, bit for
+   bit; times and bounds.
 4. The plain slice: ``build_model`` on ``configs/COCO-Detection/
    WSOVOD_WSR_50_DC5_1x.yaml``; 5. the MRRP slice, the same on
    ``WSOVOD_MRRP_WSR_50_DC5_1x.yaml`` (three branches at test); then the
@@ -51,14 +57,23 @@ Phases, in order; any failure exits nonzero before the last line is printed:
    slices ``plain-int8``, ``mrrp-int8`` and ``align-int8``: the plain, MRRP
    and align slices' configs with ``TPU.DAN_FC1_QUANT`` and
    ``TPU.RPN_CONV_QUANT`` ``int8`` (the JAX package's default inference;
-   the ROILoopPool's chunk is then 256 channels). Each with TTA
+   the ROILoopPool's chunk is then 256 channels); then ``swin-fpn`` and
+   ``swin-fpn-loop`` on ``wsovod_torch/config/swin_t_fpn.yaml`` (the
+   WSR-50-DC5 YAML with Swin-T under a 256-channel FPN, proposals from
+   p2-p6, the ROIPool or the ROILoopPool on p2-p5 through the level-routed
+   kernels, each ROI on its level; they print the ROIs per pooled level and
+   the proposals per RPN level, and hold the five-level top-k and
+   level-aware NMS on the card against the same call on CPU copies, on
+   seeded candidates at the slice's grids from which proposals survive on
+   more than two levels). Each with TTA
    off, bf16 compute, seeded random parameters, B=2 synthetic 688x1056
    images with 4000 SAM proposals each and an 80x512 class-embedding matrix,
    through ``inference_on_dataset``. Checks: the launch counts, set to 0
    just before the run and read just after, rose by one per channel chunk
    and batch for the slice's kernel (the gated ROIPool, routed by branch
    under the MRRP VGG16; the ROIAlign; in the int8 slices the ROIPool's and
-   the ROILoopPool's maxabs emission, the align's bf16 kernel) and stayed 0
+   the ROILoopPool's maxabs emission, the align's bf16 kernel; in the Swin
+   FPN slices the level-routed ROIPool or ROILoopPool) and stayed 0
    for the others; the int8 GEMMs ran once per fc1 chunk and 9 times per
    RPN level and batch in the int8 slices, never in the others;
    detections are finite and every image has some; the chunks the model
@@ -135,7 +150,8 @@ Phases, in order; any failure exits nonzero before the last line is printed:
    per ROI, have records of their own, as has the routed align; the
    windowed align's times ride in the align's record; each emission mode
    has its own record, the int8 and tile8 ones with no launches, since no
-   pooler path reaches them), and the result line.
+   pooler path reaches them; so has each level-routed mode), and the result
+   line.
 
 It imports no JAX and nothing of ``wsovod_tpu``.
 """
@@ -158,6 +174,8 @@ PLAIN_CONFIG = os.path.join(CONFIGS, "WSOVOD_WSR_50_DC5_1x.yaml")
 MRRP_CONFIG = os.path.join(CONFIGS, "WSOVOD_MRRP_WSR_50_DC5_1x.yaml")
 VGG_CONFIG = os.path.join(CONFIGS, "WSOVOD_V_16_DC5_1x.yaml")
 MRRP_VGG_CONFIG = os.path.join(CONFIGS, "WSOVOD_MRRP_V_16_DC5_1x.yaml")
+# the Swin-T FPN detector: the WSR-50-DC5 YAML with Swin-T under an FPN
+SWIN_CONFIG = os.path.join(REPO, "wsovod_torch", "config", "swin_t_fpn.yaml")
 B, H, W, S = 2, 688, 1056, 4000  # images, test resolution, SAM proposals per image
 N_ROIS = 1024 + S  # RPN post-NMS top-k + SAM
 FEAT = (B, 86, 132, 2048)  # res5 at stride 8
@@ -188,6 +206,10 @@ PEAK_F32_OPS_PER_S = 67e12
 PEAK_INT8_OPS_PER_S = 1979e12  # dense int8 tensor-core rate
 C_TAKE_LOOP_INT8 = 256  # the ROILoopPool's chunk with the int8 fc1, the JAX pooler's
 INT8_C_TILE = 256  # the int8 emissions' quantization tile in the emission phase
+# the Swin FPN's pooled levels p2-p5 at 688x1056 (PatchMerging pads odd sides)
+# and their scales; 256 channels, one chunk
+SWIN_LEVELS = ((B, 172, 264, 256), (B, 86, 132, 256), (B, 43, 66, 256), (B, 22, 33, 256))
+SWIN_SCALES = (0.25, 0.125, 0.0625, 0.03125)
 
 
 def log(*a):
@@ -461,6 +483,90 @@ def phase_routed_kernel(torch, dev, rp):
         f"{pixels / 1e9:.3f} G compares)")
     return {"max_abs_err": max_err, "ms": times["ms"], "plain_ms": times["plain_ms"],
             "bound_ms": bound_ms, "bound_by": bound_by}
+
+
+def phase_level_kernels(torch, dev, rp):
+    """The level-routed ROIPool and ROILoopPool (kernel 2.5) vs their plain
+    versions at the ``swin-fpn`` slices' level shapes (p2 ``[2, 172, 264,
+    256]`` to p5 ``[2, 22, 33, 256]``), the slice's 5024 ROIs per image
+    (the box mix plus overhanging, degenerate and invalid rows), each on the
+    level d2's rule assigns it: bfloat16 and float32, the loop rows 1 and 3,
+    bit for bit; times and bounds (the bound reads each level's chunk once
+    and the bins' pixels of each ROI on its own level)."""
+    from wsovod_torch.models.poolers import assign_boxes_to_levels
+
+    rois, gate = pool_inputs(np.random.RandomState(10))
+    rois_t, gate_t = (torch.from_numpy(a).to(dev) for a in (rois, gate))
+    g = torch.Generator(device=dev).manual_seed(10)
+    f32 = [torch.randn(sh, generator=g, device=dev) for sh in SWIN_LEVELS]
+    level = assign_boxes_to_levels(rois_t, 2, 5)
+    per_level = torch.bincount(level.flatten(), minlength=len(SWIN_LEVELS)).tolist()
+    c = SWIN_LEVELS[0][3]
+    records = {name: {"max_abs_err": 0.0} for name in ("roi_pool_levels", "roi_loop_pool_levels")}
+
+    def check(name, fn, plain, dtype, what):
+        got = fn()
+        want, t = timed(plain)
+        err = (got.float() - want.float()).abs().max().item()
+        records[name]["max_abs_err"] = max(records[name]["max_abs_err"], err)
+        if not torch.equal(got, want):
+            raise AssertionError(f"{name} != plain ({what}): max |err| {err}")
+        return t
+
+    for dtype in (torch.bfloat16, torch.float32):
+        feats = [f.to(dtype).contiguous() for f in f32]
+        name = str(dtype)[6:]
+        t = check("roi_pool_levels",
+                  lambda: rp.roi_pool_levels(feats, rois_t, gate_t, level, 0, c, 7, SWIN_SCALES),
+                  lambda: rp.roi_pool_levels_plain(feats, rois_t, gate_t, level, 0, c, 7,
+                                                   SWIN_SCALES, max_elems=1 << 28), dtype, name)
+        if dtype == torch.bfloat16:
+            records["roi_pool_levels"]["plain_ms"] = t
+            records["roi_pool_levels"]["ms"] = cuda_ms(lambda: rp.roi_pool_levels(
+                feats, rois_t, gate_t, level, 0, c, 7, SWIN_SCALES), 20)
+        for rows in (1, 3):
+            t = check("roi_loop_pool_levels",
+                      lambda: rp.roi_loop_pool_levels(feats, rois_t, gate_t, level, 0, c, rows, 7,
+                                                      SWIN_SCALES),
+                      lambda: rp.roi_loop_pool_levels_plain(feats, rois_t, gate_t, level, 0, c,
+                                                            rows, 7, SWIN_SCALES,
+                                                            max_elems=1 << 28),
+                      dtype, f"{name}, rows {rows}")
+            if dtype == torch.bfloat16:
+                key = "" if rows == 1 else "rows3_"
+                records["roi_loop_pool_levels"][f"{key}plain_ms"] = t
+                records["roi_loop_pool_levels"][f"{key}ms"] = cuda_ms(
+                    lambda: rp.roi_loop_pool_levels(feats, rois_t, gate_t, level, 0, c, rows, 7,
+                                                    SWIN_SCALES), 20 if rows == 1 else 10)
+        log(f"roi_pool_levels and roi_loop_pool_levels (rows 1, 3) == plain, {name}, {N_ROIS} "
+            f"ROIs per image on levels p2-p5 {per_level}: exact")
+
+    # the bound: each level's chunk read once (bf16), the ROIs, gate and
+    # level; the output written once; one compare per bin pixel of each ROI
+    # on its own level and channel, one gate multiply per output
+    scale_t = rp.level_scales(level, SWIN_SCALES)
+    region = rp.round_region(rois_t, scale_t)
+    geo = rp.level_loop_geometry(rois_t, level, SWIN_SCALES, [sh[1:3] for sh in SWIN_LEVELS], 1.8)
+    in_bytes = (sum(sh[0] * sh[1] * sh[2] * c * 2 for sh in SWIN_LEVELS) + rois_t.numel() * 4
+                + 2 * gate_t.numel() * 4)
+    for name, parts in (("roi_pool_levels", [(region, None)]),
+                        ("roi_loop_pool_levels", [(geo[..., 0:4], None)])):
+        pixels = 0
+        for lvl, sh in enumerate(SWIN_LEVELS):
+            on = level == lvl
+            for reg, hole in parts:
+                pixels += int(bin_pixels(rp, reg[on], hole, 7, sh[1], sh[2]).sum()) * c
+        out_elems = B * N_ROIS * 49 * c
+        bound_ms, bound_by = bound(pixels, out_elems, in_bytes, out_elems * 2)
+        r = records[name]
+        r.update(bound_ms=bound_ms, bound_by=bound_by, rois_per_level=per_level)
+        log(f"{name} bf16 levels {[list(sh) for sh in SWIN_LEVELS]} x {N_ROIS} ROIs, one "
+            f"{c}-channel chunk{', rows 1' if 'loop' in name else ''}: kernel {r['ms']:.3f} ms, "
+            f"plain {r['plain_ms']:.3f} ms, bound {bound_ms:.3f} ms ({bound_by}: "
+            f"{(in_bytes + out_elems * 2) / 1e6:.1f} MB, {pixels / 1e9:.3f} G compares)"
+            + (f"; rows 3 kernel {r['rows3_ms']:.3f} ms, plain {r['rows3_plain_ms']:.3f} ms"
+               if "loop" in name else ""))
+    return records
 
 
 def exact(got, want):
@@ -925,21 +1031,27 @@ def load_cfg(config, pooler=None, align_kernel=None, quant="none"):
 def pool_kind(model):
     """``(kind, mrrp, n_chunks)`` of a model's pooler: ``"loop"`` (the
     ROILoopPool), ``"align"`` (ROIAlign) or ``"pool"`` (the gated ROIPool),
+    with ``"-levels"`` on several pooled levels (the level-routed kernels),
     MRRP or not, and channel chunks per pooled feature."""
     heads = model.roi_heads
     channels = model.backbone.output_channels()[heads.in_features[0]]
     kind = {"ROILoopPool": "loop", "ROIAlign": "align", "ROIAlignV2": "align"}.get(
         heads.pooler.pooler_type, "pool")
+    if len(heads.in_features) > 1:
+        kind += "-levels"
     return kind, model.mrrp_num_branch > 0, channels // heads.c_take
 
 
 # the launch counters of each pooler kind's forward and backward kernels
 # (module name, attribute), in the wrappers' modules; with the int8 fc1 the
 # ROIPool and the ROILoopPool launch their maxabs emission, the align its
-# bf16 kernel; the int8 and tile8 emissions are on no path
+# bf16 kernel; on several levels the level-routed modes; the int8 and tile8
+# emissions are on no path
 FWD_COUNTERS = {"pool": ("rp", "LAUNCHES"), "loop": ("rp", "LOOP_LAUNCHES"),
                 "align": ("ra", "LAUNCHES"), "pool-int8": ("rp", "MAXABS_LAUNCHES"),
-                "loop-int8": ("rp", "LOOP_MAXABS_LAUNCHES"), "align-int8": ("ra", "LAUNCHES")}
+                "loop-int8": ("rp", "LOOP_MAXABS_LAUNCHES"), "align-int8": ("ra", "LAUNCHES"),
+                "pool-levels": ("rp", "LEVEL_LAUNCHES"),
+                "loop-levels": ("rp", "LOOP_LEVEL_LAUNCHES")}
 BWD_COUNTERS = {"pool": ("rp", "BWD_LAUNCHES"), "loop": ("rp", "LOOP_BWD_LAUNCHES"),
                 "align": ("ra", "BWD_LAUNCHES")}
 OFF_PATH_COUNTERS = (("rp", "INT8_LAUNCHES"), ("rp", "TILE8_LAUNCHES"),
@@ -1015,6 +1127,51 @@ def int8_guard(torch, model, batch, emb, tag):
     return p99, max(top)
 
 
+def check_fpn_proposals(torch, model, grids, tag):
+    """The RPN's top-k per level and level-aware NMS
+    (``find_top_rpn_proposals``) over the slice's five levels on the card
+    against the same call on CPU copies of the inputs. The random-weight RPN
+    keeps proposals from p3 and p4 only, so the candidates here are the
+    slice's anchors at its grids ``grids`` moved by seeded deltas, with
+    seeded logits of one distribution on every level: proposals must
+    survive from more than two levels, and the two devices must agree
+    (validity, levels and logits exactly, boxes to 1e-3 px)."""
+    from wsovod_torch.models.proposal_utils import find_top_rpn_proposals
+    from wsovod_torch.structures.boxes import apply_deltas
+
+    rpn = model.proposal_generator
+    dev = next(model.parameters()).device
+    g = torch.Generator().manual_seed(11)
+    boxes, logits = [], []
+    for anchors in rpn.anchor_generator.grid_anchors(grids, dev):
+        deltas = (torch.randn(B, anchors.shape[0], 4, generator=g) * 0.3).to(dev)
+        boxes.append(apply_deltas(deltas, anchors[None], weights=rpn.bbox_reg_weights))
+        logits.append(torch.randn(B, anchors.shape[0], generator=g).to(dev))
+    sizes = torch.tensor([[H, W]] * B, dtype=torch.int32, device=dev)
+    args = (rpn.nms_thresh, rpn.pre_nms_topk, rpn.post_nms_topk, rpn.min_box_size)
+    find_top_rpn_proposals(boxes, logits, sizes, *args)  # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = find_top_rpn_proposals(boxes, logits, sizes, *args)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    want = find_top_rpn_proposals([x.cpu() for x in boxes], [x.cpu() for x in logits],
+                                  sizes.cpu(), *args)
+    valid = got.valid.cpu()
+    kept = torch.bincount(got.level_ids.cpu()[valid].flatten(), minlength=len(grids)).tolist()
+    box_err = (got.proposal_boxes.cpu() - want.proposal_boxes).abs().max().item()
+    if not (torch.equal(valid, want.valid) and torch.equal(got.level_ids.cpu(), want.level_ids)
+            and torch.equal(got.objectness_logits.cpu(), want.objectness_logits)
+            and box_err <= 1e-3):
+        raise AssertionError(f"{tag}: the card's five-level proposals differ from the CPU's "
+                             f"(box err {box_err})")
+    if sum(k > 0 for k in kept) <= 2:
+        raise AssertionError(f"{tag}: seeded proposals survive on levels {kept} only")
+    log(f"{tag} five-level proposals (seeded logits, grids {grids}): card == CPU, kept per "
+        f"level {dict(zip(rpn.in_features, kept))} ({int(valid.sum())} valid), box err "
+        f"{box_err:.3g}, {ms:.3f} ms on the card")
+
+
 def run_slice(torch, dev, mods, tag, config, emb, pooler=None, align_kernel=None, quant="none",
               bf16_stages=None):
     """Drive one slice through ``inference_on_dataset`` and check it (see
@@ -1048,7 +1205,7 @@ def run_slice(torch, dev, mods, tag, config, emb, pooler=None, align_kernel=None
     inference_on_dataset(model, warm, DetectionCounter(), embeddings=emb)  # warm-up
     torch.cuda.synchronize()
 
-    captured, rpn_out, feat_std, feat_shape = [], [], [], []
+    captured, rpn_out, feat_std, feat_shape, grids = [], [], [], [], []
 
     def capture(mod, inp, out):
         if len(captured) < n_chunks:  # the first batch's chunks
@@ -1057,6 +1214,7 @@ def run_slice(torch, dev, mods, tag, config, emb, pooler=None, align_kernel=None
     def capture_rpn(mod, inp, out):
         if not rpn_out:
             rpn_out.append(out)
+            grids.extend(tuple(inp[0][k].shape[1:3]) for k in mod.in_features)
             f = inp[0][mod.in_features[0]].float()
             feat_std.extend(f.flatten(1).std(dim=1).tolist())
             feat_shape.extend(f.shape)
@@ -1089,26 +1247,42 @@ def run_slice(torch, dev, mods, tag, config, emb, pooler=None, align_kernel=None
         raise AssertionError(f"{tag}: images without detections: {counts}")
     if len(captured) != n_chunks:
         raise AssertionError(f"{tag}: captured {len(captured)} pooled chunks")
-    max_err = 0.0
-    for k, ((feat, boxes, gate, c_base, c_take, src, rows, emit), out) in enumerate(captured):
+    max_err, per_level = 0.0, None
+    for k, ((feat, boxes, gate, c_base, c_take, src, rows, emit, level), out) in enumerate(
+            captured):
         assert rows == 1 and emit == maxabs, (rows, emit)
+        assert (level is not None) == kind.endswith("-levels"), kind
         out, m = out if maxabs else (out, None)
-        assert out.shape == (B, N_ROIS, 7, 7, c_take) and c_take * n_chunks == feat.shape[3], (
+        channels = (feat[0] if level is not None else feat).shape[3]
+        assert out.shape == (B, N_ROIS, 7, 7, c_take) and c_take * n_chunks == channels, (
             out.shape, n_chunks)
         if int8:  # the int8 slices' chunks on their first REDUCED_N ROIs per image
             cut = slice(0, REDUCED_N)
             out, m = out[:, cut], (None if m is None else m[:, cut])
             boxes, gate = boxes[:, cut].contiguous(), gate[:, cut].contiguous()
             src = None if src is None else src[:, cut].contiguous()
-        assert feat.shape[0] == (N_BRANCH * B if mrrp else B), feat.shape
-        if kind == "loop":
+        if level is not None:  # each ROI on its own FPN level
+            scales = model.roi_heads.pooler.scales
+            per_level = torch.bincount(level.flatten(), minlength=len(scales)).tolist()
+            if len(set(level.flatten().tolist())) < 2:
+                raise AssertionError(f"{tag}: the ROIs fall on one level only: {per_level}")
+            if kind == "loop-levels":
+                want = rp.roi_loop_pool_levels_plain(feat, boxes, gate, level, c_base, c_take, 1,
+                                                     7, scales, 1.8, max_elems=1 << 28)[0]
+            else:
+                want = rp.roi_pool_levels_plain(feat, boxes, gate, level, c_base, c_take, 7,
+                                                scales, max_elems=1 << 28)
+        elif kind == "loop":
+            assert feat.shape[0] == (N_BRANCH * B if mrrp else B), feat.shape
             want = rp.roi_loop_pool_gated_plain(feat, boxes, gate, src, c_base, c_take, 1, 7, 0.125,
                                                 1.8, max_elems=1 << 28)[0]
         elif kind == "align":
+            assert feat.shape[0] == (N_BRANCH * B if mrrp else B), feat.shape
             assert (src is not None) == mrrp  # routed by branch under MRRP only
             want = ra.roi_align_gated_plain(feat, boxes, gate, c_base, c_take, 7, 0.125, ALIGN_S,
                                             src=src, window=window, max_elems=1 << 27)
         else:
+            assert feat.shape[0] == (N_BRANCH * B if mrrp else B), feat.shape
             assert (src is not None) == mrrp  # routed by branch under MRRP only
             want = rp.roi_pool_gated_plain(feat, boxes, gate, c_base, c_take, 7, 0.125,
                                            max_elems=1 << 28, src=src)
@@ -1124,6 +1298,13 @@ def run_slice(torch, dev, mods, tag, config, emb, pooler=None, align_kernel=None
     branches = torch.unique(torch.div(rpn.level_ids[rpn.valid], 1000, rounding_mode="floor")).tolist()
     if mrrp and len(branches) < 2:
         raise AssertionError(f"{tag}: RPN proposals from branches {branches} only")
+    if per_level is not None:
+        rpn_levels = torch.bincount(rpn.level_ids[rpn.valid].flatten(),
+                                    minlength=len(model.proposal_generator.in_features)).tolist()
+        log(f"{tag} levels: the first batch's ROIs per pooled level "
+            f"{dict(zip(model.roi_heads.in_features, per_level))}; RPN proposals per level "
+            f"{dict(zip(model.proposal_generator.in_features, rpn_levels))}")
+        check_fpn_proposals(torch, model, grids, tag)
     log(f"{tag} slice: {n_images} images in {dt:.3f} s = {n_images / dt:.3f} images/s (B={B}, "
         f"{H}x{W}, {N_ROIS} ROIs/image, bf16{', int8 fc1 and RPN conv' if int8 else ''}); "
         f"detections/image min {min(counts.values())} max {max(counts.values())}; "
@@ -1721,7 +1902,8 @@ def main() -> int:
                "roi_loop_pool_gated": phase_loop_kernel(torch, dev, rp),
                "roi_pool_gated_routed": phase_routed_kernel(torch, dev, rp),
                **phase_align_kernel(torch, dev, ra),
-               **phase_emission_kernels(torch, dev, rp, ra)}
+               **phase_emission_kernels(torch, dev, rp, ra),
+               **phase_level_kernels(torch, dev, rp)}
     int8_gemms = phase_int8_gemms(torch, dev)
 
     # ---- 4., 5. the inference slices
@@ -1737,7 +1919,9 @@ def main() -> int:
             ("roi_pool_gated_routed", "mrrp-vgg", MRRP_VGG_CONFIG, None),
             ("roi_align_gated", "align", PLAIN_CONFIG, ALIGN),
             ("roi_align_gated_routed", "mrrp-align", MRRP_CONFIG, ALIGN),
-            ("roi_align_gated", "align-approx", PLAIN_CONFIG, ALIGN)):
+            ("roi_align_gated", "align-approx", PLAIN_CONFIG, ALIGN),
+            ("roi_pool_levels", "swin-fpn", SWIN_CONFIG, None),
+            ("roi_loop_pool_levels", "swin-fpn-loop", SWIN_CONFIG, "ROILoopPool")):
         launches, err, stages[tag] = run_slice(torch, dev, mods, tag, config, emb, pooler,
                                                "pallas_approx" if tag == "align-approx" else None)
         by_path[name][tag] = launches
@@ -1757,7 +1941,8 @@ def main() -> int:
                       ("roi_pool_gated_routed", "mrrp-vgg"), ("roi_align_gated", "align"),
                       ("roi_align_gated_routed", "mrrp-align"),
                       ("roi_pool_gated_maxabs", "plain-int8"),
-                      ("roi_loop_pool_gated_maxabs", "mrrp-int8")):
+                      ("roi_loop_pool_gated_maxabs", "mrrp-int8"),
+                      ("roi_pool_levels", "swin-fpn"), ("roi_loop_pool_levels", "swin-fpn-loop")):
         records[name]["launches"] = by_path[name][tag]
 
     # ---- 6., 7. the backward kernels vs plain; 8.-12. the train slices
@@ -1833,9 +2018,15 @@ def main() -> int:
                                      "wsovod_tpu/ops/pallas/roi_pool_fused.py:2085"),
         "roi_align_gated_int8": ("wsovod_torch/kernels/csrc/roi_align_gated.cu",
                                  "wsovod_tpu/ops/pallas/roi_align_fused.py:408"),
+        # 2.5: the per-image pools the JAX multi-level pooler runs on every
+        # level, here the level-routed modes of the two forward kernels
+        "roi_pool_levels": ("wsovod_torch/kernels/csrc/roi_pool_gated.cu",
+                            "wsovod_tpu/ops/pallas/roi_pool_kernel.py:281"),
+        "roi_loop_pool_levels": ("wsovod_torch/kernels/csrc/roi_loop_pool_gated.cu",
+                                 "wsovod_tpu/ops/pallas/roi_pool_kernel.py:333"),
     }
     extra = ("n_rois", "plain_n_rois", "ms_at_plain_n", "window_ms", "window_plain_ms", "routed_ms",
-             "routed_plain_ms")
+             "routed_plain_ms", "rows3_ms", "rows3_plain_ms", "rois_per_level")
     log("int8 GEMMs (torch._int_mm, not a kernel of the port): "
         + json.dumps({k: round(v, 3) for k, v in int8_gemms.items()}))
     log(card)

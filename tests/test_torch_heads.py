@@ -22,7 +22,9 @@ JAX function, at dilation 1 and 2: without a bias bit for bit in float32
 and bfloat16 (one int32 sum, then ``(acc * s_x) * s_k``), with one float32
 rtol 1e-6 and atol 1e-7 (XLA:CPU makes ``* s_k + bias`` an FMA) and bfloat16
 within one bfloat16 step; the RPN head's conv keeps its parameters and runs
-in floating point in training."""
+in floating point in training; the int8 head on an FPN's five levels
+against the JAX ``StandardRPNHead(conv_quant="int8")``, each level
+quantized on its own, float32 at 1e-5."""
 
 import jax
 import jax.numpy as jnp
@@ -34,6 +36,7 @@ from wsovod_tpu.models import mil_heads as jmil
 from wsovod_tpu.models.box_head import ChunkedDenseGeneral
 from wsovod_tpu.models.box_head import DiscriminativeAdaptationNeck as JaxDAN
 from wsovod_tpu.models.layers import conv3x3_shifted_int8 as jax_conv_int8
+from wsovod_tpu.models.rpn import StandardRPNHead as JaxRPNHead
 from wsovod_tpu.models.fast_rcnn_inference import fast_rcnn_inference_batched as jax_frcnn
 from wsovod_torch.models import class_heads as tch
 from wsovod_torch.models import mil_heads as tmil
@@ -117,7 +120,8 @@ def _check_int8_fc1():
 def _check_int8_rpn_conv():
     """``conv3x3_shifted_int8`` against the JAX function under ``jax.jit``,
     bit for bit; the RPN head's int8 conv at inference, its float conv in
-    training, with the same parameters."""
+    training, with the same parameters; then the int8 head on five levels
+    against the JAX head."""
     rng = np.random.RandomState(4)
     x = rng.randn(2, 6, 9, 16).astype(np.float32)
     kernel = (rng.randn(3, 3, 16, 24) * 0.1).astype(np.float32)
@@ -154,6 +158,27 @@ def _check_int8_rpn_conv():
     assert torch.equal(lg_test, want_test.permute(0, 2, 3, 1))
     assert torch.equal(lg_train, want_train.permute(0, 2, 3, 1))
     assert not torch.equal(lg_test, lg_train)
+
+    # the head on an FPN's five levels against the JAX StandardRPNHead with
+    # its int8 conv: each level quantized on its own, the same parameters
+    rng = np.random.RandomState(6)
+    levels = [rng.randn(2, h, w, 16).astype(np.float32) * (1.0 + k)
+              for k, (h, w) in enumerate(((10, 14), (5, 7), (3, 4), (2, 2), (1, 1)))]
+    jhead = JaxRPNHead(num_anchors=3, conv_quant="int8")
+    sd = head.state_dict()
+    params = {"conv": {"kernel": kernel, "bias": bias}}
+    for name in ("objectness_logits", "anchor_deltas"):
+        params[name] = {"kernel": sd[f"{name}.weight"].numpy().transpose(2, 3, 1, 0),
+                        "bias": sd[f"{name}.bias"].numpy()}
+    want_lg, want_dl = jax.jit(lambda p, f: jhead.apply({"params": p}, f))(
+        params, [jnp.asarray(f) for f in levels])
+    with torch.inference_mode():
+        got_lg, got_dl = head([_t(f) for f in levels])
+    for k in range(len(levels)):
+        np.testing.assert_allclose(got_lg[k].numpy(), np.asarray(want_lg[k]), rtol=1e-5,
+                                   atol=1e-6, err_msg=f"logits level {k}")
+        np.testing.assert_allclose(got_dl[k].numpy(), np.asarray(want_dl[k]), rtol=1e-5,
+                                   atol=1e-6, err_msg=f"deltas level {k}")
 
 
 def _check_dan():

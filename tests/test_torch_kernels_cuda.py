@@ -51,7 +51,9 @@ def test_kernel_equals_plain(cuda):
     gated ROIPool and its backward routed by a per-ROI source copy. The
     gated ROIAlign and its backward. The emission modes (maxabs, int8,
     tile8; the align's int8) bit-equal to their plain versions, payloads and
-    scales, one launch counted per call."""
+    scales, one launch counted per call. The level-routed ROIPool and
+    ROILoopPool (kernel 2.5) bit-equal to their plain versions."""
+    _check_level_kernels(cuda)
     _check_emission_kernels(cuda)
     _check_align_kernels(cuda)
     _check_loop_kernel(cuda)
@@ -74,6 +76,48 @@ def test_kernel_equals_plain(cuda):
     feat, rois, gate = _inputs(cuda, torch.bfloat16)
     with pytest.raises(ValueError):
         port.roi_pool_gated(feat.transpose(1, 2), rois, gate, 0, 64)
+
+
+def _check_level_kernels(cuda):
+    """``roi_pool_levels`` and ``roi_loop_pool_levels`` (rows 1 and 3) on
+    four FPN levels of a 344x528 image (p2 ``[2, 86, 132, 64]`` down to p5
+    ``[2, 11, 17, 64]``, padded as the Swin FPN pads), 600 ROIs per image on
+    all levels with overhanging, degenerate and gate-0 rows, bfloat16 and
+    float32, on the whole chunk and an inner one: bit-equal to their plain
+    versions, one launch counted per call."""
+    from wsovod_torch.models.poolers import assign_boxes_to_levels
+
+    scales = (0.25, 0.125, 0.0625, 0.03125)
+    g = torch.Generator().manual_seed(7)
+    for dtype in (torch.bfloat16, torch.float32):
+        _, rois, gate = _inputs(cuda, dtype, b=2, h=43, w=66, c=8, n=600, seed=7)
+        rois = rois * 1.5  # boxes of 8 to 530 px: every level
+        gate[:, 5] = 0.0
+        shapes, h, w = [], 86, 132
+        for _ in scales:
+            shapes.append((2, h, w, 64))
+            h, w = -(-h // 2), -(-w // 2)
+        feats = [torch.randn(sh, generator=g).to(cuda, dtype) for sh in shapes]
+        level = assign_boxes_to_levels(rois, 2, 5)
+        assert len(torch.unique(level)) == 4
+        for c_base, c_take in ((0, 64), (16, 32)):
+            before = port.LEVEL_LAUNCHES
+            got = port.roi_pool_levels(feats, rois, gate, level, c_base, c_take, 7, scales)
+            torch.cuda.synchronize()
+            assert port.LEVEL_LAUNCHES == before + 1
+            want = port.roi_pool_levels_plain(feats, rois, gate, level, c_base, c_take, 7, scales)
+            assert torch.equal(got, want), (dtype, c_base, c_take)
+            for rows in (1, 3):
+                before = port.LOOP_LEVEL_LAUNCHES
+                got = port.roi_loop_pool_levels(feats, rois, gate, level, c_base, c_take, rows, 7,
+                                                scales)
+                torch.cuda.synchronize()
+                assert port.LOOP_LEVEL_LAUNCHES == before + 1
+                want = port.roi_loop_pool_levels_plain(feats, rois, gate, level, c_base, c_take,
+                                                       rows, 7, scales)
+                assert torch.equal(got, want), (dtype, c_base, c_take, rows)
+    with pytest.raises(TypeError):
+        port.roi_pool_levels([f.half() for f in feats], rois, gate, level, 0, 64, 7, scales)
 
 
 def _check_backward_kernel(cuda):
@@ -332,7 +376,8 @@ def test_model_forward_on_cuda(cuda):
     channel chunk, detections are finite; train steps run the backward
     kernels. With both int8 keys the ROIPool and the ROILoopPool go through
     their maxabs emission (the ROILoopPool's 256-channel chunks: two), the
-    align through its kernel, fc1 and the RPN conv through int8 GEMMs."""
+    align through its kernel, fc1 and the RPN conv through int8 GEMMs. A
+    narrow Swin FPN detector through the level-routed pools."""
     from wsovod_torch import get_cfg
     from wsovod_torch.models import build_model
 
@@ -379,6 +424,7 @@ def test_model_forward_on_cuda(cuda):
     assert port.LOOP_LAUNCHES == before + 1
     assert torch.isfinite(det.scores[det.valid]).all() and det.valid.any()
     _check_int8_models(cuda, cfg, batch, emb)
+    _check_swin_fpn_model(cuda, batch, emb)
 
     # a train step of the plain model with res5 trainable: one pool and one
     # pool-backward launch per chunk, finite losses, res5 receives gradients
@@ -440,6 +486,38 @@ def test_model_forward_on_cuda(cuda):
     assert (align.LAUNCHES, align.BWD_LAUNCHES) == (before[0] + 1, before[1] + 1)
     assert len(losses) == 5 and all(torch.isfinite(v) for v in losses.values()), losses
     assert model.backbone.res5[0].conv1.weight.grad.abs().sum() > 0
+
+
+def _check_swin_fpn_model(cuda, batch, emb):
+    """A narrow Swin FPN detector (``wsovod_torch/config/swin_t_fpn.yaml``
+    with embed 24, depths ``[2, 2, 1, 1]``, window 4, a 32-channel FPN) with
+    ROIPool and ROILoopPool: one level-routed launch per batch (32 channels:
+    one chunk), its ROIs on several levels, finite detections."""
+    from wsovod_torch import get_cfg
+    from wsovod_torch.models import build_model
+
+    for pooler, attr in (("ROIPool", "LEVEL_LAUNCHES"), ("ROILoopPool", "LOOP_LEVEL_LAUNCHES")):
+        cfg = get_cfg()
+        cfg.merge_from_file(os.path.join(REPO, "wsovod_torch", "config", "swin_t_fpn.yaml"))
+        cfg.TEST.AUG.ENABLED = False
+        cfg.MODEL.SWIN.EMBED_DIM, cfg.MODEL.SWIN.DEPTHS = 24, [2, 2, 1, 1]
+        cfg.MODEL.SWIN.NUM_HEADS, cfg.MODEL.SWIN.WINDOW_SIZE = [2, 2, 2, 2], 4
+        cfg.MODEL.FPN.OUT_CHANNELS = 32
+        cfg.MODEL.ROI_HEADS.NUM_CLASSES = 5
+        cfg.MODEL.ROI_BOX_HEAD.POOLER_TYPE = pooler
+        cfg.MODEL.ROI_BOX_HEAD.DAN_DIM = [64, 64]
+        cfg.MODEL.ROI_BOX_HEAD.OPEN_VOCABULARY.WEIGHT_DIM = 16
+        model = build_model(cfg, device=cuda, seed=0)
+        levels = []
+        hook = model.roi_heads.pooler.register_forward_hook(lambda m, i, o: levels.append(i[8]))
+        before = getattr(port, attr)
+        with torch.inference_mode():
+            det, probs, boxes = model(batch, embeddings=emb)
+        torch.cuda.synchronize()
+        hook.remove()
+        assert getattr(port, attr) == before + 1 and len(levels) == 1, pooler
+        assert len(torch.unique(levels[0])) >= 2, pooler
+        assert torch.isfinite(det.scores[det.valid]).all() and det.valid.any()
 
 
 def _check_int8_models(cuda, cfg, batch, emb):

@@ -30,6 +30,13 @@ VGG16-DC5 detectors'.
   and against the jnp reference pools (7x7) with the quantize formula in
   numpy on the edge boxes of ``routed_pool_inputs``, exactly, float32 and
   bfloat16 (all four).
+* The level-routed ROILoopPool (kernel 2.5, ``roi_loop_pool_levels``: each
+  ROI on its own FPN level, its frame and context clipped to that level's
+  map), inside ``test_loop_pool_plain_matches_jax``: rows 3 against the JAX
+  package's multi-level ``ROIPooler`` on the jnp path (the edge boxes of
+  ``level_pool_inputs``, ROIs on all four levels, float32 and bfloat16) and
+  against ``roi_loop_pool_pallas`` in interpret mode on p5, the padded
+  map (clipped boxes, one ROI per grid step, 3x3 bins, float32): exact.
 * The weight round trip on the MRRP training tree, and ContextLocNet's
   object miner loaded from it against the JAX package's (rtol 1e-5).
 
@@ -53,9 +60,10 @@ import numpy as np
 import torch
 
 from torch_port_common import (
-    MRRP_VGG_YAML, MRRP_YAML, VGG_YAML, check_int8_model, clip_to_image, embeddings,
-    jax_pool_emission, jax_reference, jax_stages, make_batch, np_quant_scale, np_quantize_tiles,
-    random_params, routed_pool_inputs, tiny_cfg, torch_model_from_jax,
+    LEVEL_SCALES, MRRP_VGG_YAML, MRRP_YAML, VGG_YAML, check_int8_model, clip_to_image, embeddings,
+    jax_level_pool, jax_pallas_per_level, jax_pool_emission, jax_reference, jax_stages,
+    level_pool_inputs, make_batch, np_quant_scale, np_quantize_tiles, port_levels, random_params,
+    routed_pool_inputs, tiny_cfg, torch_model_from_jax,
 )
 from wsovod_tpu.models.backbones.vgg import VGG16 as JaxVGG16
 from wsovod_tpu.ops.pallas.roi_pool_fused import _pool_ad_bwd, _pool_branched_bwd
@@ -70,8 +78,8 @@ from wsovod_torch.models.backbones import VGG16
 from wsovod_torch.models.mil_heads import ObjectMiningOutputLayers
 from wsovod_torch.ops.roi_pool import (
     roi_loop_pool_gated, roi_loop_pool_gated_bwd_plain, roi_loop_pool_gated_int8,
-    roi_loop_pool_gated_maxabs, roi_pool_gated, roi_pool_gated_bwd_plain, roi_pool_gated_int8,
-    roi_pool_gated_maxabs,
+    roi_loop_pool_gated_maxabs, roi_loop_pool_levels, roi_loop_pool_levels_plain, roi_pool_gated,
+    roi_pool_gated_bwd_plain, roi_pool_gated_int8, roi_pool_gated_maxabs,
 )
 from wsovod_torch.solver.build import param_labels
 from wsovod_torch.structures.instances import Instances
@@ -125,6 +133,47 @@ def test_loop_pool_plain_matches_jax():
     _check_loop_backward()
     _check_routed_pool()
     _check_loop_and_routed_emissions()
+    _check_level_loop_pool()
+
+
+def _check_level_loop_pool():
+    """The level-routed ROILoopPool's plain version (the CPU path of
+    ``roi_loop_pool_levels``) against the JAX multi-level pooler and, per
+    level, ``roi_loop_pool_pallas`` (see the module docstring); rows 1 and 2
+    are the first rows of rows 3; a tiny temporary budget gives the same
+    bits."""
+    feats, rois, gate, valid = level_pool_inputs(2)
+    level = port_levels(rois)
+    assert len(torch.unique(level)) == len(LEVEL_SCALES)
+    wants = jax_level_pool(feats, rois, gate, valid, "ROILoopPool", (jnp.float32, jnp.bfloat16))
+    for dtype, want in zip((torch.float32, torch.bfloat16), wants):
+        fs = [_t(f).to(dtype) for f in feats]
+        got = roi_loop_pool_levels(fs, _t(rois), _t(gate), level, 0, 8, 3, 7, LEVEL_SCALES)
+        assert got.dtype == dtype and got.shape == want.shape
+        np.testing.assert_array_equal(got.float().numpy(), want, err_msg=str(dtype))
+        for rows in (1, 2):
+            part = roi_loop_pool_levels(fs, _t(rois), _t(gate), level, 0, 8, rows, 7,
+                                        LEVEL_SCALES)
+            assert torch.equal(part, got[:rows])
+    # every row pools something on the edge rows, nothing on the invalid one
+    assert all((np.abs(want[r, :, :7]).reshape(2, 7, -1).max(-1) > 0).any() for r in range(3))
+    assert not want[:, :, 7].any()
+    args = ([_t(f) for f in feats], _t(rois), _t(gate), level, 2, 4, 3, 7, LEVEL_SCALES)
+    assert torch.equal(roi_loop_pool_levels_plain(*args),
+                       roi_loop_pool_levels_plain(*args, max_elems=1))
+
+    # the TPU kernel on p5, the coarsest map, whose padding moves the clip
+    # bounds w_lim / scale furthest from the image's (each level costs a
+    # trace of the kernel; the jnp reference above holds every level)
+    rois_c = clip_to_image(rois, 136.0, 100.0)
+    level_c = port_levels(rois_c)
+    on = level_c.numpy() == 3
+    assert on.sum() >= 2
+    want = jax_pallas_per_level(feats, rois_c, gate, level_c.numpy(), loop=True, p=3,
+                                levels=(3,))
+    got = roi_loop_pool_levels([_t(f) for f in feats], _t(rois_c), _t(gate), level_c, 0, 8, 3, 3,
+                               LEVEL_SCALES)
+    np.testing.assert_array_equal(got.numpy()[:, on], want[:, on])
 
 
 def _check_loop_and_routed_emissions():

@@ -26,6 +26,14 @@ The gated ROIAlign (``wsovod_torch.ops.roi_align``), inside the same items:
   cotangent equals the unrouted backward of the ROIs that read it (rtol
   1e-6: float32 summation order).
 
+The level-routed ROIPool (kernel 2.5, ``roi_pool_levels``: each ROI pooled
+on its own FPN level), inside the same items: against the JAX package's
+multi-level ``ROIPooler`` on the jnp path times the gate (unclipped,
+overhanging, degenerate, wholly outside and invalid boxes, a small canonical
+box so the ROIs fall on all four levels, float32 and bfloat16), and against
+``roi_pool_pallas`` in interpret mode per level (boxes clipped to the image,
+ROADMAP 3.1; one ROI per grid step, 3x3 bins, float32): exact.
+
 The emission modes of the gated ROIPool (``maxabs``, ``int8``, ``tile8``)
 and of the align (``int8``), inside the same items:
 
@@ -53,7 +61,8 @@ import pytest
 import torch
 
 from torch_port_common import (
-    clip_to_image, jax_pool_emission, np_quant_scale, np_quantize_tiles, routed_pool_inputs,
+    LEVEL_SCALES, clip_to_image, jax_level_pool, jax_pallas_per_level, jax_pool_emission,
+    level_pool_inputs, np_quant_scale, np_quantize_tiles, port_levels, routed_pool_inputs,
 )
 from wsovod_tpu.ops.pallas.roi_align_fused import _fused_ad_bwd, roi_align_fused_batched
 from wsovod_tpu.ops.pallas.roi_align_kernel import roi_align_pallas
@@ -133,6 +142,45 @@ def test_plain_gated_pool_exact():
     _check_align_backward()
     _check_emissions()
     _check_align_int8()
+    _check_level_pool()
+
+
+def _check_level_pool():
+    """The level-routed ROIPool's plain version (the CPU path of
+    ``roi_pool_levels``) against the JAX multi-level pooler and, per level,
+    ``roi_pool_pallas`` (see the module docstring); a tiny temporary budget
+    gives the same bits; it pools each ROI on its level only."""
+    feats, rois, gate, valid = level_pool_inputs(0)
+    level = port_levels(rois)
+    assert len(torch.unique(level)) == len(LEVEL_SCALES)
+    wants = jax_level_pool(feats, rois, gate, valid, "ROIPool", (jnp.float32, jnp.bfloat16))
+    for dtype, want in zip(("float32", "bfloat16"), wants):
+        tdt = getattr(torch, dtype)
+        for c_base, c_take in ((0, 8), (2, 4)):
+            got = port.roi_pool_levels([_t(f).to(tdt) for f in feats], _t(rois), _t(gate), level,
+                                       c_base, c_take, P, LEVEL_SCALES)
+            assert got.dtype == tdt and got.shape == (2, rois.shape[1], P, P, c_take)
+            np.testing.assert_array_equal(got.float().numpy(), want[..., c_base:c_base + c_take],
+                                          err_msg=f"{dtype} {c_base}+{c_take}")
+    assert (np.abs(want[:, :7]).reshape(2, 7, -1).max(-1) > 0).any() and not want[:, 7].any()
+    args = ([_t(f) for f in feats], _t(rois), _t(gate), level, 0, 8, P, LEVEL_SCALES)
+    assert torch.equal(port.roi_pool_levels_plain(*args),
+                       port.roi_pool_levels_plain(*args, max_elems=1))
+    # one level's map changed: only the ROIs on that level change
+    moved = [f.copy() for f in feats]
+    moved[2] = moved[2] + 5.0
+    other = port.roi_pool_levels([_t(f) for f in moved], *args[1:])
+    on2 = (level == 2).numpy() & valid
+    diff = (other - port.roi_pool_levels(*args)).abs().flatten(2).amax(-1).numpy()
+    assert (diff[on2] > 0).all() and not diff[~on2].any()
+
+    img_w, img_h = 136.0, 100.0
+    rois_c = clip_to_image(rois, img_w, img_h)
+    level_c = port_levels(rois_c)
+    want = jax_pallas_per_level(feats, rois_c, gate, level_c.numpy(), loop=False, p=PJ)
+    got = port.roi_pool_levels([_t(f) for f in feats], _t(rois_c), _t(gate), level_c, 0, 8, PJ,
+                               LEVEL_SCALES)
+    np.testing.assert_array_equal(got.numpy(), want)
 
 
 def _t(x):
@@ -357,6 +405,35 @@ def test_wrapper_contract():
     leaf = feat.clone().requires_grad_(True)
     with pytest.raises(NotImplementedError):
         align.RoIAlignGatedFunction.apply(leaf, rois, gate, 0, 24, P, SCALE, 2, True, None, 32)
+
+    # the level-routed pools' wrappers: no launch counted on the CPU; a bad
+    # level, chunk, level count or shape raises; no backward
+    feats, lrois, lgate, _ = (level_pool_inputs(1))
+    feats = [_t(f) for f in feats]
+    lrois, lgate = _t(lrois), _t(lgate)
+    level = port_levels(lrois.numpy())
+    before = (port.LEVEL_LAUNCHES, port.LOOP_LEVEL_LAUNCHES)
+    port.roi_pool_levels(feats, lrois, lgate, level, 0, 8, P, LEVEL_SCALES)
+    port.roi_loop_pool_levels(feats, lrois, lgate, level, 0, 8, 1, P, LEVEL_SCALES)
+    assert (port.LEVEL_LAUNCHES, port.LOOP_LEVEL_LAUNCHES) == before
+    bad_levels = {
+        "level_range": (feats, level + 1, 0, 8, LEVEL_SCALES),
+        "level_negative": (feats, level - 1, 0, 8, LEVEL_SCALES),
+        "level_shape": (feats, level[:, :3], 0, 8, LEVEL_SCALES),
+        "scales": (feats, level, 0, 8, LEVEL_SCALES[:3]),
+        "chunk": (feats, level, 4, 8, LEVEL_SCALES),
+        "batch": ([f[:1] for f in feats], level, 0, 8, LEVEL_SCALES),
+    }
+    for name, (f, lv, c_base, c_take, sc) in bad_levels.items():
+        for fn in (port.roi_pool_levels, port.roi_loop_pool_levels):
+            with pytest.raises(ValueError):
+                fn(f, lrois, lgate, lv, c_base, c_take, output_size=P, scales=sc)
+                pytest.fail(f"{fn.__name__} {name} was accepted")
+    with pytest.raises(TypeError):
+        port.roi_pool_levels(feats, lrois, lgate, level.float(), 0, 8, P, LEVEL_SCALES)
+    with pytest.raises(NotImplementedError):
+        port.roi_pool_levels([f.clone().requires_grad_(True) for f in feats], lrois, lgate, level,
+                             0, 8, P, LEVEL_SCALES)
 
 
 def _check_emissions():

@@ -20,14 +20,21 @@ above; probabilities rtol 1e-4 and atol 1e-4, since torch's and XLA's
 float32 backbone sums may move an activation across a rounding tie of the
 int8 quantization, one step of 127; the ROI heads on the JAX features and
 proposals, where fc1's int8 product is bit for bit, as the float slice.
-Then the entry point over two batches."""
+Then the entry point over two batches.
+
+The Swin-T FPN detector (``wsovod_torch/config/swin_t_fpn.yaml`` cut to a
+tiny Swin under a 32-channel FPN, ``torch_port_common.tiny_cfg``), with the
+ROIPool and with the ROILoopPool, inside ``test_slice_matches_jax``: 160-px
+images whose ROIs fall on p2 and p3, proposals from p2-p6, the level-routed
+pools (kernel 2.5); against the JAX package's inference (its multi-level
+pooler on the jnp path) at the tolerances above, then the entry point."""
 
 import numpy as np
 import torch
 
 from torch_port_common import (
-    TINY_YAML, check_int8_model, embeddings, jax_int8_forward, jax_reference, jax_stages,
-    make_batch, torch_model_from_jax,
+    SWIN_YAML, TINY_YAML, batch_for, check_int8_model, embeddings, jax_apply, jax_int8_forward,
+    jax_reference, jax_stages, make_batch, torch_model_from_jax,
 )
 from wsovod_torch.engine.evaluator import inference_on_dataset
 from wsovod_torch.structures.instances import Instances
@@ -49,11 +56,77 @@ def _top5(det, i):
 
 def test_slice_matches_jax():
     """The forward on two inputs, then the entry point over two batches;
-    then the int8 inference."""
+    then the int8 inference; then the Swin-T FPN detector."""
     for seed in (0, 5):
         _check_forward(seed)
     _check_inference_on_dataset()
     _check_int8_slice()
+    _check_swin_fpn()
+
+
+def _check_swin_fpn():
+    """The tiny Swin FPN detector with ``ROIPool`` and ``ROILoopPool``
+    against the JAX package's inference: proposals (five RPN levels), class
+    probabilities, boxes and the top detections (with ``ROILoopPool`` the
+    JAX side is its ROI heads on the ``ROIPool`` forward's features,
+    proposals and data-aware vector: the pooler owns no parameters and
+    changes nothing before the ROI heads, and with both int8 keys, which
+    change nothing in the JAX heads on several levels); the port's ROI heads
+    with both int8 keys (fc1 in floating point) against the same; its ROIs
+    were pooled on two levels, one level-routed launch per channel chunk
+    (all 32 channels: one chunk); then ``inference_on_dataset`` over two
+    batches."""
+    import jax
+    import jax.numpy as jnp
+
+    from wsovod_tpu.structures.instances import Instances as JaxInstances
+    from wsovod_torch.ops import roi_pool as rp
+
+    _check_forward(0, SWIN_YAML, "ROIPool")
+    feats, _, daf, (_, _, _, props) = jax_stages(0, SWIN_YAML, None, "ROIPool")
+    # the JAX heads with both int8 keys: on several levels they pool unfused
+    # and run fc1 as a plain DenseGeneral, as with the keys off
+    jm, params = jax_reference(SWIN_YAML, pooler="ROILoopPool", quant="int8")
+
+    def heads(m, f, boxes, logits, valid, sizes, d, e):
+        p = JaxInstances(valid, proposal_boxes=boxes, objectness_logits=logits)
+        return m.roi_heads.inference(f, p, sizes, data_aware_features=d, embeddings=e)
+
+    args = (feats, *props, batch_for(SWIN_YAML, 0)["image_sizes"], daf, embeddings())
+    loop = jax.tree_util.tree_map(np.asarray, jax_apply(
+        SWIN_YAML, lambda p, *a: jm.apply(p, *a, method=heads))(
+            params, *jax.tree_util.tree_map(jnp.asarray, args)))
+    _check_forward(0, SWIN_YAML, "ROILoopPool", jax_forward=(*loop, props))
+    # the port's int8 model keeps fc1 in floating point there: its ROI heads
+    # on the JAX features, proposals and data-aware vector give the JAX heads'
+    tm8 = torch_model_from_jax(SWIN_YAML, pooler="ROILoopPool", quant="int8")
+    assert tm8.roi_heads.box_head.fc1.quant == "none"
+    with torch.inference_mode():
+        _, hprobs, hboxes = tm8.roi_heads.inference(
+            {k: torch.from_numpy(v) for k, v in feats.items()},
+            Instances(torch.from_numpy(props[2]), proposal_boxes=torch.from_numpy(props[0]),
+                      objectness_logits=torch.from_numpy(props[1])),
+            torch.from_numpy(batch_for(SWIN_YAML, 0)["image_sizes"]),
+            data_aware_features=torch.from_numpy(daf), embeddings=torch.from_numpy(embeddings()))
+    np.testing.assert_allclose(hprobs.numpy(), loop[1], rtol=RTOL, atol=1e-6)
+    np.testing.assert_allclose(hboxes.numpy(), loop[2], rtol=RTOL, atol=BOX_ATOL)
+    tm = torch_model_from_jax(SWIN_YAML)
+    assert tm.roi_heads.pooler.scales == (0.25, 0.125, 0.0625, 0.03125)
+    levels = []
+    hook = tm.roi_heads.pooler.register_forward_hook(lambda m, i, o: levels.append(i[8]))
+
+    def loader():
+        for seed in (0, 1):
+            b = batch_for(SWIN_YAML, seed)
+            b["image_id"] = [f"{seed}_{i}" for i in range(2)]
+            b["orig_size"] = b["image_sizes"]
+            yield b
+
+    got = inference_on_dataset(tm, loader(), _Recorder(), embeddings=torch.from_numpy(embeddings()))
+    hook.remove()
+    assert len(got) == 4 and all(len(s) and np.isfinite(s).all() for _, s, _ in got.values())
+    assert len(levels) == 2 and all(len(torch.unique(lv)) >= 2 for lv in levels), levels
+    assert rp.LEVEL_LAUNCHES == 0  # the CPU takes the plain version
 
 
 def _check_int8_slice():
@@ -80,10 +153,12 @@ def _check_int8_slice():
                                    atol=BOX_ATOL)
 
 
-def _check_forward(seed):
-    batch = make_batch(seed)
-    jdet, jprobs, jboxes, jprops = jax_stages(seed)[3]
-    tdet, tprobs, tboxes, tprops = _torch_forward(torch_model_from_jax(), batch)
+def _check_forward(seed, yaml=TINY_YAML, pooler=None, jax_forward=None):
+    """The port's forward against the JAX package's (``jax_stages``, or
+    ``jax_forward``'s ``(det, probs, boxes, proposals)``)."""
+    batch = batch_for(yaml, seed)
+    jdet, jprobs, jboxes, jprops = jax_forward or jax_stages(seed, yaml, None, pooler)[3]
+    tdet, tprobs, tboxes, tprops = _torch_forward(torch_model_from_jax(yaml, pooler=pooler), batch)
 
     np.testing.assert_array_equal(tprops[2].numpy(), jprops[2])  # proposal validity
     np.testing.assert_allclose(tprops[0].numpy(), jprops[0], rtol=RTOL, atol=BOX_ATOL)

@@ -12,7 +12,16 @@
   naming the key and the backbone's features; the ROIAlign poolers it
   admits, and the windowed align it refuses for training; the int8 fc1 and
   RPN conv it admits with every pooler, for inference and training (which
-  ignores them), and their models load the same weights.
+  ignores them), and their models load the same weights; the Swin FPN
+  detector with ROIPool and ROILoopPool it admits for inference, also with
+  the int8 keys (the RPN conv int8 on every level, fc1 in floating point as
+  the JAX package's unfused multi-level path runs it), and refuses by name
+  on several levels the ROIAlign, MRRP and pooled levels out of order or
+  with a gap, and its training;
+* the Swin FPN's tree (Dense ``[in, out]`` to ``Linear [out, in]``, conv
+  HWIO to OIHW, the relative position bias tables, the LayerNorms, the
+  bias-free ``reduction``, ``fpn_lateral_*``/``fpn_output_*``) loads into
+  the port's model with ``strict=True`` and comes back bit-equal.
 """
 
 import os
@@ -24,13 +33,14 @@ import pytest
 import torch
 
 from torch_port_common import (
-    MRRP_VGG_YAML, MRRP_YAML, REPO, TINY_YAML, VGG_YAML, jax_reference, tiny_cfg,
+    MRRP_VGG_YAML, MRRP_YAML, REPO, SWIN_YAML, TINY_YAML, VGG_YAML, jax_reference, random_params,
+    tiny_cfg,
 )
 from wsovod_tpu.utils.weight_import import import_wsovod_model
 from wsovod_torch import check_supported, get_cfg
 from wsovod_torch.config import check_train_supported
 from wsovod_torch.models import build_model
-from wsovod_torch.utils.weight_import import state_dict_from_jax
+from wsovod_torch.utils.weight_import import backbone_state_dict_from_jax, state_dict_from_jax
 
 
 def _template():
@@ -45,6 +55,45 @@ def test_weight_import_round_trip():
     load."""
     _check_round_trip_through_reference_importer()
     _check_fc1_is_stored_chunk_major_inside()
+    _check_swin_fpn_tree()
+
+
+def _check_swin_fpn_tree():
+    """The tiny Swin FPN's JAX tree (the backbone of ``tiny_cfg(cfg,
+    SWIN_YAML)``; the heads' tree is the R18 config's, above) ->
+    ``backbone_state_dict_from_jax`` -> the port's backbone
+    (``strict=True``) -> its ``state_dict``: bit-equal, each leaf in
+    torch's layout."""
+    import jax
+    import jax.numpy as jnp
+
+    from wsovod_tpu.config import get_cfg as jax_get_cfg
+    from wsovod_tpu.models.backbones import build_backbone as jax_build_backbone
+
+    jm = jax_build_backbone(tiny_cfg(jax_get_cfg(), SWIN_YAML))
+    tree = random_params(jax.eval_shape(lambda: jm.init(jax.random.PRNGKey(0),
+                                                        jnp.zeros((1, 32, 32, 3)))))["params"]
+    sd = backbone_state_dict_from_jax(tree)
+    model = build_model(tiny_cfg(get_cfg(), SWIN_YAML), device="cpu", seed=None)
+    model.backbone.load_state_dict(sd, strict=True)
+    for k, v in model.backbone.state_dict().items():
+        assert torch.equal(v, sd[k]), k
+    bu, bb = tree["bottom_up"], "bottom_up."
+    pairs = {
+        bb + "patch_embed.proj.weight": bu["patch_embed"]["kernel"].transpose(3, 2, 0, 1),
+        bb + "patch_embed.norm.weight": bu["patch_norm"]["scale"],
+        bb + "layers.0.blocks.1.attn.qkv.weight": bu["stage2_block1"]["attn"]["qkv"]["kernel"].T,
+        bb + "layers.0.blocks.1.attn.relative_position_bias_table":
+            bu["stage2_block1"]["attn"]["relative_position_bias_table"],
+        bb + "layers.1.blocks.0.mlp.fc2.bias": bu["stage3_block0"]["mlp_fc2"]["bias"],
+        bb + "layers.2.downsample.reduction.weight": bu["merge4"]["reduction"]["kernel"].T,
+        bb + "norm3.bias": bu["stage5_norm"]["bias"],
+        "fpn_lateral5.weight": tree["fpn_lateral_stage5"]["kernel"].transpose(3, 2, 0, 1),
+        "fpn_output2.bias": tree["fpn_output_stage2"]["bias"],
+    }
+    for k, v in pairs.items():
+        np.testing.assert_array_equal(sd[k].numpy(), v, err_msg=k)
+    assert bb + "layers.2.downsample.reduction.bias" not in sd
 
 
 def _check_round_trip_through_reference_importer():
@@ -93,15 +142,15 @@ sys.path.insert(0, {tests!r})
 import torch
 import wsovod_torch
 from wsovod_torch.models import build_model
-from torch_port_common import MRRP_YAML, TINY_YAML, tiny_cfg, make_batch, embeddings
-batch = {{k: torch.from_numpy(v) for k, v in make_batch().items()}}
-for yaml in (TINY_YAML, MRRP_YAML):
-    for quant in ("none", "int8"):
-        model = build_model(tiny_cfg(wsovod_torch.get_cfg(), yaml, quant=quant), device="cpu",
-                            seed=0)
-        with torch.inference_mode():
-            det, probs, boxes = model(batch, embeddings=torch.from_numpy(embeddings()))
-        assert bool(det.valid.any())
+from torch_port_common import (MRRP_YAML, SWIN_YAML, TINY_YAML, batch_for, tiny_cfg, make_batch,
+                               embeddings)
+for yaml, quant in ((TINY_YAML, "none"), (TINY_YAML, "int8"), (MRRP_YAML, "none"),
+                    (MRRP_YAML, "int8"), (SWIN_YAML, "none"), (SWIN_YAML, "int8")):
+    batch = {{k: torch.from_numpy(v) for k, v in batch_for(yaml, 0).items()}}
+    model = build_model(tiny_cfg(wsovod_torch.get_cfg(), yaml, quant=quant), device="cpu", seed=0)
+    with torch.inference_mode():
+        det, probs, boxes = model(batch, embeddings=torch.from_numpy(embeddings()))
+    assert bool(det.valid.any())
 # the training modules: one iteration of the trainer
 import tempfile
 from wsovod_torch.engine.trainer import WSOVODTrainer
@@ -135,6 +184,11 @@ def test_port_config_and_jax_free_import():
         _set(cfg, key, value)
         with pytest.raises(NotImplementedError, match=key.replace(".", r"\.")):
             build_model(cfg, device="cpu")
+    for key, value, why in _UNPORTED_SWIN:
+        cfg = tiny_cfg(get_cfg(), SWIN_YAML)
+        _set(cfg, key, value)
+        with pytest.raises(NotImplementedError, match=why):
+            build_model(cfg, device="cpu")
     # the VGG YAMLs as shipped inherit RPN.IN_FEATURES ["res5"]: named, not
     # a KeyError, and not rewritten; likewise a pooled feature the ResNet
     # does not give
@@ -162,6 +216,30 @@ def _check_admitted_poolers():
     reference weights load into the model with ``strict=True`` as into the
     floating-point one, and admitted for training."""
     back = state_dict_from_jax(_template())
+    # the Swin FPN: ROIPool and ROILoopPool on p2-p5 for inference, its
+    # training refused by name with the reason; with both int8 keys, the RPN
+    # conv int8 on its five levels and fc1 in floating point (the JAX
+    # package's unfused path); the Swin alone on one level admitted, its
+    # training refused by name
+    for pooler in ("ROIPool", "ROILoopPool"):
+        cfg = tiny_cfg(get_cfg(), SWIN_YAML, pooler=pooler, quant="int8")
+        model = build_model(cfg, device="cpu", seed=None)
+        assert model.proposal_generator.rpn_head.conv.quant == "int8"
+        assert model.roi_heads.box_head.fc1.quant == "none" and model.roi_heads.c_take == 32
+        cfg = tiny_cfg(get_cfg(), SWIN_YAML, pooler=pooler)
+        cfg.MODEL.ROI_HEADS.IN_FEATURES = ["p3", "p4", "p5"]  # consecutive from p3
+        check_supported(cfg)
+        cfg = tiny_cfg(get_cfg(), SWIN_YAML, pooler=pooler)
+        model = build_model(cfg, device="cpu", seed=None)
+        assert model.roi_heads.in_features == ("p2", "p3", "p4", "p5")
+        assert model.proposal_generator.in_features == ("p2", "p3", "p4", "p5", "p6")
+        with pytest.raises(NotImplementedError, match=r"ROI_HEADS\.IN_FEATURES.*no VJP"):
+            check_train_supported(cfg)
+        cfg.MODEL.BACKBONE.NAME = "build_swin_backbone"
+        cfg.MODEL.RPN.IN_FEATURES = cfg.MODEL.ROI_HEADS.IN_FEATURES = ["stage5"]
+        check_supported(cfg)
+        with pytest.raises(NotImplementedError, match=r"BACKBONE\.NAME.*Swin"):
+            check_train_supported(cfg)
     for yaml in (TINY_YAML, MRRP_YAML, MRRP_VGG_YAML):
         for pooler in ("ROIPool", "ROILoopPool", "ROIAlignV2"):
             cfg = tiny_cfg(get_cfg(), yaml, pooler=pooler, quant="int8")
@@ -255,8 +333,17 @@ _UNPORTED = [
     ("TPU.BACKBONE_CONV_QUANT", "int8"),
     ("MODEL.ROI_BOX_HEAD.POOLER_TYPE", "ROIAlignRotated"),
     ("MODEL.META_ARCHITECTURE", "GeneralizedRCNN_WSOVOD_MixedDatasets"),
-    ("MODEL.BACKBONE.NAME", "build_swin_backbone"),
-    ("MODEL.BACKBONE.NAME", "build_swin_fpn_backbone"),
+    ("MODEL.BACKBONE.NAME", "build_deform_resnet_backbone"),
+]
+# refused on the Swin FPN config: pooled on several levels, the ROIAlign
+# (a routed multi-level align is later work), MRRP, levels out of order or
+# with a gap (the pooler indexes the maps by level - min_level)
+_UNPORTED_SWIN = [
+    ("MODEL.ROI_BOX_HEAD.POOLER_TYPE", "ROIAlignV2", "routed multi-level align"),
+    ("MODEL.ROI_BOX_HEAD.POOLER_TYPE", "ROIAlign", "routed multi-level align"),
+    ("MODEL.MRRP.MRRP_ON", True, "MRRP on several levels"),
+    ("MODEL.ROI_HEADS.IN_FEATURES", ["p5", "p4", "p3", "p2"], r"ROI_HEADS\.IN_FEATURES.*consecutive"),
+    ("MODEL.ROI_HEADS.IN_FEATURES", ["p2", "p4"], r"ROI_HEADS\.IN_FEATURES.*consecutive"),
 ]
 # refused on the MRRP config (ROIPool, ROILoopPool, ROIAlignV2 and ROIAlign
 # are ported, with or without MRRP, on one level)

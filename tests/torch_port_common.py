@@ -4,6 +4,7 @@ reference model with its parameters, built once per process."""
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import os
 
@@ -19,6 +20,9 @@ TINY_YAML = os.path.join(REPO, "configs", "COCO-Detection", "WSOVOD_WSR_18_DC5_1
 MRRP_YAML = os.path.join(REPO, "configs", "COCO-Detection", "WSOVOD_MRRP_WSR_18_DC5_1x.yaml")
 VGG_YAML = os.path.join(REPO, "configs", "COCO-Detection", "WSOVOD_V_16_DC5_1x.yaml")
 MRRP_VGG_YAML = os.path.join(REPO, "configs", "COCO-Detection", "WSOVOD_MRRP_V_16_DC5_1x.yaml")
+# the Swin-T FPN detector's config, the port's own (chip_smoke.py reads it too)
+SWIN_YAML = os.path.join(REPO, "wsovod_torch", "config", "swin_t_fpn.yaml")
+SWIN_SIZE = 160  # the tiny Swin FPN's images: large SAM boxes fall on p3
 NUM_CLASSES = 5
 WEIGHT_DIM = 16
 
@@ -30,8 +34,16 @@ def tiny_cfg(cfg, yaml: str = TINY_YAML, test_branch_idx=None, pooler=None, quan
     ``MRRP_VGG_YAML``; their RPN reads ``plain5``, which the YAMLs leave at
     the base's ``res5``), float32, no TTA; ``pooler`` sets ``POOLER_TYPE``,
     ``quant`` both ``TPU.DAN_FC1_QUANT`` and ``TPU.RPN_CONV_QUANT`` (default
-    no int8)."""
+    no int8). ``SWIN_YAML``: the Swin-T FPN cut to a tiny Swin (embed 24,
+    depths ``[2, 2, 1, 1]``, 2 heads, window 4, so every stage runs a
+    shifted block or pads its windows) under a 32-channel FPN."""
     cfg.merge_from_file(yaml)
+    if "swin" in cfg.MODEL.BACKBONE.NAME:
+        cfg.MODEL.SWIN.EMBED_DIM = 24
+        cfg.MODEL.SWIN.DEPTHS = [2, 2, 1, 1]
+        cfg.MODEL.SWIN.NUM_HEADS = [2, 2, 2, 2]
+        cfg.MODEL.SWIN.WINDOW_SIZE = 4
+        cfg.MODEL.FPN.OUT_CHANNELS = 32
     if "vgg" in cfg.MODEL.BACKBONE.NAME:
         cfg.MODEL.RPN.IN_FEATURES = ["plain5"]
     if test_branch_idx is not None:
@@ -67,6 +79,18 @@ def make_batch(seed: int = 0, b: int = 2, s: int = 12, size: int = 64, gt: bool 
     if gt:
         batch["gt_classes"] = rng.randint(0, NUM_CLASSES, (b, 4)).astype(np.int32)
         batch["gt_valid"] = np.arange(4)[None, :] < rng.randint(1, 5, (b, 1))
+    return batch
+
+
+def batch_for(yaml: str, seed: int) -> dict:
+    """The test batch of a config: ``make_batch(seed)``, or for ``SWIN_YAML``
+    ``SWIN_SIZE`` images whose first four SAM boxes per image have sides of
+    112 px or more, so that the ROIs fall on two FPN levels."""
+    if yaml != SWIN_YAML:
+        return make_batch(seed)
+    batch = make_batch(seed, size=SWIN_SIZE)
+    batch["sam_boxes"][:, :4] = [[4, 6, 150, 140], [20, 10, 140, 125], [0, 0, 160, 160],
+                                 [30, 40, 150, 158]]
     return batch
 
 
@@ -111,7 +135,8 @@ def random_params(shapes, seed: int = 0):
     statistics (scale U(0.2, 0.6) keeps activations O(1)), RPN N(0, 0.01),
     DAN N(0, 0.005) with bias about 0.1, classifier projections
     N(0, 1/fan_in), box regressor N(0, 0.001), data-aware linears
-    U(0, 0.02), prototypes N(0, 1). Biases get small random values so no
+    U(0, 0.02), prototypes N(0, 1), LayerNorm scales U(0.5, 1.5), relative
+    position bias tables N(0, 1). Biases get small random values so no
     two units tie."""
     import jax
 
@@ -121,7 +146,11 @@ def random_params(shapes, seed: int = 0):
         name = jax.tree_util.keystr(path)
         shape = leaf.shape
         kernel = name.endswith("['kernel']")
-        if "FrozenBatchNorm" in name:
+        if "relative_position_bias_table" in name:  # large enough to reorder attention
+            v = rng.randn(*shape)
+        elif name.endswith("['scale']") and "FrozenBatchNorm" not in name:  # LayerNorm
+            v = rng.uniform(0.5, 1.5, shape)
+        elif "FrozenBatchNorm" in name:
             if name.endswith("['var']"):
                 v = rng.uniform(0.5, 2.0, shape)
             elif name.endswith("['scale']"):
@@ -156,7 +185,10 @@ def jax_reference(yaml: str = TINY_YAML, test_branch_idx=None, pooler=None, quan
     other leaves' draws are those of the inference tree). The test branch
     index, the pooler and the quantization own no parameters (the trees are
     the same): with any given, the parameters are those of
-    ``jax_reference(yaml)``."""
+    ``jax_reference(yaml)``. The JAX package's multi-level pooler cannot be
+    traced (it takes ``int()`` of a ``jnp.log2`` of its scales), so the
+    Swin FPN's parameter tree is traced on one pooled level: the pooler
+    owns no parameters, and the tree is the same."""
     import jax
     import jax.numpy as jnp
 
@@ -166,11 +198,16 @@ def jax_reference(yaml: str = TINY_YAML, test_branch_idx=None, pooler=None, quan
     model = build_model(tiny_cfg(get_cfg(), yaml, test_branch_idx, pooler, quant))
     if test_branch_idx is not None or pooler is not None or quant != "none":
         return model, jax_reference(yaml)[1]
+    traced = model
+    if yaml == SWIN_YAML:
+        cfg = tiny_cfg(get_cfg(), yaml)
+        cfg.MODEL.ROI_HEADS.IN_FEATURES = cfg.MODEL.ROI_HEADS.IN_FEATURES[:1]
+        traced = build_model(cfg)
     # the parameter shapes do not depend on the batch: trace the smallest
     batch = {k: jnp.asarray(v) for k, v in make_batch(b=1, s=2, size=32, gt=True).items()}
     emb = jnp.asarray(embeddings())
     shapes = jax.eval_shape(
-        lambda: model.init({"params": jax.random.PRNGKey(0), "dropout": jax.random.PRNGKey(1)},
+        lambda: traced.init({"params": jax.random.PRNGKey(0), "dropout": jax.random.PRNGKey(1)},
                            batch, train=True, iteration=jnp.asarray(1),
                            rng=jax.random.PRNGKey(2), embeddings=emb)
     )
@@ -180,16 +217,16 @@ def jax_reference(yaml: str = TINY_YAML, test_branch_idx=None, pooler=None, quan
 @functools.lru_cache(maxsize=None)
 def jax_stages(seed: int, yaml: str = TINY_YAML, test_branch_idx=None, pooler=None):
     """The JAX model (``jax_reference(yaml, test_branch_idx, pooler)``) on
-    ``make_batch(seed)``, as numpy: ``(features, rpn proposals, data-aware
+    ``batch_for(yaml, seed)``, as numpy: ``(features, rpn proposals, data-aware
     vector, forward)`` where ``forward`` is ``model.apply(..., train=False,
     return_proposals=True)``'s ``(det, probs, boxes, (proposal_boxes,
     objectness, valid))``. One compiled program per config serves every
-    seed."""
+    seed (the Swin FPN's traced as ``jax_apply`` says)."""
     import jax
     import jax.numpy as jnp
 
     model, params = jax_reference(yaml, test_branch_idx, pooler)
-    batch = {k: jnp.asarray(v) for k, v in make_batch(seed).items()}
+    batch = {k: jnp.asarray(v) for k, v in batch_for(yaml, seed).items()}
     return jax.tree_util.tree_map(np.array,
                                   _jax_stage_fn(yaml, test_branch_idx, pooler)(params, batch))
 
@@ -202,26 +239,69 @@ def _jax_stage_fn(yaml: str, test_branch_idx, pooler):
     model, _ = jax_reference(yaml, test_branch_idx, pooler)
     emb = jnp.asarray(embeddings())
 
-    def stages(m, b):
-        forward = m(b, train=False, embeddings=emb, return_proposals=True)
-        return (*_front(m, b), forward)
+    def stages(p, b):
+        return _forward_and_front(model, p, b, emb)
 
-    return jax.jit(lambda p, b: model.apply(p, b, method=stages))
+    return jax_apply(yaml, stages)
 
 
-def _front(m, b):
-    """The JAX model's ``(features, rpn proposals, data-aware vector)`` on
-    batch ``b`` (the vector as ``GeneralizedRCNN_WSOVOD.__call__`` makes
-    it)."""
-    import jax.numpy as jnp
+def jax_apply(yaml: str, fn):
+    """``jax.jit(fn)``; for ``SWIN_YAML`` traced under
+    ``concrete_pooler_scales``."""
+    import jax
 
-    feats = m.backbone(m._normalize(b["images"]))
-    rpn, _ = m.proposal_generator(feats, b["image_sizes"])
-    f = feats[m.in_feature]
-    s = b["image_sizes"] // (b["images"].shape[1] // f.shape[1])
-    pixel_valid = (jnp.arange(f.shape[1])[None, :, None] < s[:, 0, None, None]) & (
-        jnp.arange(f.shape[2])[None, None, :] < s[:, 1, None, None])
-    return feats, rpn, m.data_aware_head(f, pixel_valid=pixel_valid)
+    jitted = jax.jit(fn)
+    if yaml != SWIN_YAML:
+        return jitted
+
+    def run(*a):
+        with concrete_pooler_scales():
+            return jitted(*a)
+
+    return run
+
+
+@contextlib.contextmanager
+def concrete_pooler_scales():
+    """While active, the JAX package's ``ROIPooler.__call__`` runs under
+    ``jax.ensure_compile_time_eval``: its multi-level path takes ``int()`` of
+    a ``jnp.log2`` of its scales, which a trace does not allow (ROADMAP
+    3.13); computed eagerly, that constant traces, and the pooler's code is
+    the same. Undone on exit: nothing in the JAX package changes."""
+    import jax
+
+    from wsovod_tpu.models.poolers import ROIPooler
+
+    call = ROIPooler.__dict__["__call__"]
+
+    def concrete(self, *a, **k):
+        with jax.ensure_compile_time_eval():
+            return call(self, *a, **k)
+
+    ROIPooler.__call__ = concrete
+    try:
+        yield
+    finally:
+        ROIPooler.__call__ = call
+
+
+_FRONT = ("backbone", "proposal_generator", "data_aware_head")
+
+
+def _forward_and_front(model, p, b, emb):
+    """``(features, rpn proposals, data-aware vector, forward)`` of the JAX
+    model on batch ``b``: ``forward`` is ``model.apply(..., train=False,
+    return_proposals=True)``'s ``(det, probs, boxes, (proposal_boxes,
+    objectness, valid))``, the other three the outputs of its backbone, RPN
+    and data-aware head inside that forward (captured, not computed again)."""
+    forward, state = model.apply(
+        p, b, train=False, embeddings=emb, return_proposals=True,
+        capture_intermediates=lambda mdl, method: (
+            method == "__call__" and len(mdl.scope.path) == 1 and mdl.name in _FRONT),
+        mutable=["intermediates"])
+    seen = state["intermediates"]
+    feats, (rpn, _), daf = (seen[name]["__call__"][0] for name in _FRONT)
+    return feats, rpn, daf, forward
 
 
 def torch_model_from_jax(yaml: str = TINY_YAML, test_branch_idx=None, pooler=None,
@@ -269,13 +349,14 @@ def jax_int8_forward(yaml: str = TINY_YAML, routes=("default", "maxabs")):
     batch = {k: jnp.asarray(v) for k, v in make_batch(0).items()}
 
     def routed(p, b):
-        out = {"stages": model.apply(p, b, method=_front)}
+        out = {}
         saved = os.environ.pop("WSOVOD_POOL_MAXABS", None)
         try:
             for route in routes:
                 if route == "maxabs":
                     os.environ["WSOVOD_POOL_MAXABS"] = "1"
-                out[route] = model.apply(p, b, train=False, embeddings=emb, return_proposals=True)
+                *stages, out[route] = _forward_and_front(model, p, b, emb)
+                out.setdefault("stages", tuple(stages))
                 os.environ.pop("WSOVOD_POOL_MAXABS", None)
         finally:
             if saved is not None:
@@ -422,4 +503,110 @@ def clip_to_image(rois: np.ndarray, img_w: float, img_h: float) -> np.ndarray:
     out = rois.copy()
     out[..., 0::2] = out[..., 0::2].clip(0, img_w)
     out[..., 1::2] = out[..., 1::2].clip(0, img_h)
+    return out
+
+
+# ------------------------------------------- the level-routed pools (2.5)
+LEVEL_SCALES = (0.25, 0.125, 0.0625, 0.03125)  # p2-p5
+LEVEL_CANONICAL = 28.0  # a small canonical box: the ROIs of a small image fall on every level
+
+
+def level_pool_inputs(seed=0, b=2, img_h=100, img_w=136, c=8, n=40):
+    """An FPN's four levels of an ``img_h x img_w`` image (p2-p5, each
+    coarser level padded as ``PatchMerging`` pads an odd side), boxes from a
+    size mix over all levels plus overhanging, degenerate, whole-image,
+    wholly outside and invalid rows, the ``(objectness+1)*valid`` gate.
+    Returns ``(feats, rois, gate, valid)``, numpy, invalid rows zeroed."""
+    rng = np.random.RandomState(seed)
+    feats, h, w = [], -(-img_h // 4), -(-img_w // 4)
+    for _ in LEVEL_SCALES:
+        feats.append(rng.randn(b, h, w, c).astype(np.float32))
+        h, w = -(-h // 2), -(-w // 2)
+    xy = rng.uniform(-10, img_w * 0.7, (b, n, 2))
+    wh = np.exp(rng.uniform(np.log(2.0), np.log(img_w * 0.9), (b, n, 2)))
+    rois = np.concatenate([xy, xy + wh], -1)
+    rois[:, 0] = [img_w - 30, img_h - 20, img_w + 60, img_h + 50]  # overhangs right/bottom
+    rois[:, 1] = [-50, -40, 40, 30]  # overhangs left/top
+    rois[:, 2] = [50, 40, 20, 10]  # degenerate: x2 < x1, y2 < y1
+    rois[:, 3] = [4, 12, 100, 60]  # .5 boundaries at p3
+    rois[:, 4] = [0, 0, img_w, img_h]  # the whole image
+    rois[:, 5] = [-400, -300, -200, -100]  # wholly outside
+    rois[:, 6] = [30, 30, 31, 31]  # one pixel
+    valid = rng.rand(b, n) > 0.15
+    valid[:, :7] = True
+    valid[:, 7] = False
+    gate = ((rng.rand(b, n) + 1.0) * valid).astype(np.float32)
+    rois = np.where(valid[..., None], rois, 0.0).astype(np.float32)
+    return feats, rois, gate, valid
+
+
+def jax_level_pool(feats, rois, gate, valid, pooler_type, dtypes):
+    """The JAX package's multi-level ``ROIPooler`` (the jnp path: every
+    level pools every ROI, each ROI keeps its level's) at ``LEVEL_SCALES``
+    and ``LEVEL_CANONICAL``, unmasked, on the features cast to each of
+    ``dtypes``, times the gate cast to the pooled dtype as the unfused ROI
+    heads gate it (``wsovod_tpu/models/roi_heads.py:266-275``); a list of
+    float32 numpy ``[(3,) B, N, 7, 7, C]``, one per dtype, from one program
+    traced under ``concrete_pooler_scales``."""
+    import jax
+    import jax.numpy as jnp
+
+    from wsovod_tpu.models.poolers import ROIPooler
+
+    pooler = ROIPooler(7, LEVEL_SCALES, pooler_type=pooler_type,
+                       canonical_box_size=LEVEL_CANONICAL)
+
+    def gated(fs, r, v, gt):
+        outs = []
+        for dtype in dtypes:
+            out = pooler([f.astype(dtype) for f in fs], r, v, mask_invalid=False)
+            g = gt.astype(out.dtype)
+            g = g[None, :, :, None, None, None] if out.ndim == 6 else g[:, :, None, None, None]
+            outs.append(out * g)  # in the pooled dtype: a cast here would skip its rounding
+        return outs
+
+    with concrete_pooler_scales():
+        outs = jax.jit(gated)([jnp.asarray(f) for f in feats], jnp.asarray(rois),
+                              jnp.asarray(valid), jnp.asarray(gate))
+    return [np.asarray(o.astype(jnp.float32)) for o in outs]
+
+
+def port_levels(rois: np.ndarray) -> torch.Tensor:
+    """The port's level of each ROI at ``LEVEL_SCALES`` and ``LEVEL_CANONICAL``."""
+    from wsovod_torch.models.poolers import assign_boxes_to_levels
+
+    lo = int(round(-np.log2(LEVEL_SCALES[0])))
+    return assign_boxes_to_levels(torch.from_numpy(rois), lo, lo + len(LEVEL_SCALES) - 1,
+                                  LEVEL_CANONICAL)
+
+
+def jax_pallas_per_level(feats, rois, gate, level, loop, p=3, levels=None):
+    """``roi_pool_pallas`` / ``roi_loop_pool_pallas`` (kernel 2.5) in Pallas
+    interpret mode, one ROI per grid step and ``p x p`` bins, per image and
+    level on all of the image's ROIs, each ROI keeping its level's output,
+    times the gate; float32 numpy ``[(3,) B, N, p, p, C]``, zero for the
+    ROIs of a level not in ``levels`` (default all: each level costs a
+    trace of the kernel, seconds for the loop pool's)."""
+    import jax.numpy as jnp
+
+    from wsovod_tpu.ops.pallas.roi_pool_kernel import roi_loop_pool_pallas, roi_pool_pallas
+
+    fn = roi_loop_pool_pallas if loop else roi_pool_pallas
+    b, n = gate.shape
+    c = feats[0].shape[-1]
+    out = np.zeros(((3,) if loop else ()) + (b, n, p, p, c), np.float32)
+    for lvl, (f, s) in enumerate(zip(feats, LEVEL_SCALES)):
+        if levels is not None and lvl not in levels:
+            continue
+        for i in range(b):
+            sel = level[i] == lvl
+            if not sel.any():
+                continue
+            pooled = np.asarray(fn(jnp.asarray(f[i]), jnp.asarray(rois[i]), p, s, c_tile=c,
+                                   roi_block=1, interpret=True))
+            pooled = pooled * gate[i][:, None, None, None]
+            if loop:
+                out[:, i, sel] = pooled[:, sel]
+            else:
+                out[i, sel] = pooled[sel]
     return out

@@ -315,6 +315,34 @@ def get_cfg() -> CN:
 
 _RESNET_BACKBONES = ("build_wsl_resnet_backbone", "build_mrrp_wsl_resnet_backbone")
 _VGG_BACKBONES = ("build_vgg_backbone", "build_mrrp_vgg_backbone")
+_SWIN_BACKBONES = ("build_swin_backbone", "build_swin_fpn_backbone")
+
+
+def _feature_names(m: CN) -> list:
+    """The features ``MODEL.BACKBONE.NAME`` gives: ``RESNETS.OUT_FEATURES``,
+    ``VGG.OUT_FEATURES``, ``SWIN.OUT_FEATURES``, or for the Swin FPN
+    ``p{k}`` of each ``stage{k}`` in ``FPN.IN_FEATURES`` (stride ``2**k``)
+    and one more level above the coarsest (``LastLevelMaxPool``)."""
+    name = m.BACKBONE.NAME
+    if name in _VGG_BACKBONES:
+        return list(m.VGG.OUT_FEATURES)
+    if name == "build_swin_backbone":
+        return list(m.SWIN.OUT_FEATURES)
+    if name == "build_swin_fpn_backbone":
+        levels = sorted(int(f[len("stage"):]) for f in m.FPN.IN_FEATURES)
+        return [f"p{k}" for k in levels + [levels[-1] + 1]]
+    return list(m.RESNETS.OUT_FEATURES)
+
+
+def _consecutive_levels(features) -> bool:
+    """Whether FPN level names ``p{k}`` run from fine to coarse without a
+    gap, as the pooler indexes them (``level - min_level``). Names that are
+    not ``p{k}`` pass here: the check of the backbone's features names
+    them."""
+    if not all(f[:1] == "p" and f[1:].isdigit() for f in features):
+        return True
+    ks = [int(f[1:]) for f in features]
+    return ks == list(range(ks[0], ks[0] + len(ks)))
 
 
 def _refuse(key: str, value, why: str):
@@ -329,12 +357,25 @@ def check_supported(cfg: CN) -> None:
     sampling, mining, ``WSOVOD.BBOX_REFINE``) are checked by
     ``check_train_supported``: the reference ignores them at inference too.
 
-    The backbones are the WSR ResNet and VGG16 (``build_vgg_backbone``,
-    ``build_mrrp_vgg_backbone``). The poolers are ``ROIPool``,
-    ``ROILoopPool``, ``ROIAlignV2`` and ``ROIAlign``, on one level (every
-    ``TPU.ROI_ALIGN_KERNEL``: ``pallas_approx`` is the windowed align, any
-    other the exact one). MRRP is ported at the backbone's last stage (res5
-    or plain5), with any of them routed by branch, with all branches at test
+    The backbones are the WSR ResNet, VGG16 (``build_vgg_backbone``,
+    ``build_mrrp_vgg_backbone``) and the Swin Transformer, alone
+    (``build_swin_backbone``) or under its FPN (``build_swin_fpn_backbone``).
+    The poolers are ``ROIPool``, ``ROILoopPool``, ``ROIAlignV2`` and
+    ``ROIAlign`` on one level (every ``TPU.ROI_ALIGN_KERNEL``:
+    ``pallas_approx`` is the windowed align, any other the exact one), and
+    ``ROIPool`` and ``ROILoopPool`` on several levels of the Swin FPN,
+    without MRRP (kernel 2.5, level-routed); the RPN proposes from one level
+    or, without MRRP, from several. On several levels the ROIAlign is
+    refused by name (a routed multi-level align is later work), and so is
+    MRRP (the JAX package's MRRP pooler asserts one level,
+    ``wsovod_tpu/models/poolers.py:811``), and so are pooled levels that
+    are not consecutive from fine to coarse. With ``TPU.DAN_FC1_QUANT``
+    ``"int8"`` on several pooled levels fc1 runs in floating point, as the
+    JAX package's unfused multi-level path runs it (a plain ``DenseGeneral``,
+    ``wsovod_tpu/models/box_head.py:248-258``); the int8 RPN conv quantizes
+    each level, as the JAX ``StandardRPNHead`` does. MRRP
+    is ported at the backbone's last stage (res5 or plain5), with any of
+    them routed by branch, with all branches at test
     (``TEST_BRANCH_IDX = -1``) or one (``>= 0``). ``ROILoopPool`` also runs
     without MRRP; then each ROI pools from its own image. ``TPU.DAN_FC1_QUANT``
     and ``TPU.RPN_CONV_QUANT`` take ``"none"`` or ``"int8"`` (int8 inference,
@@ -349,17 +390,21 @@ def check_supported(cfg: CN) -> None:
     mrrp = m.MRRP
     pooler = m.ROI_BOX_HEAD.POOLER_TYPE
     vgg = m.BACKBONE.NAME in _VGG_BACKBONES
+    swin = m.BACKBONE.NAME in _SWIN_BACKBONES
     last_stage = "plain5" if vgg else "res5"
+    pooled_levels = len(m.ROI_HEADS.IN_FEATURES)
+    rpn_levels = len(m.RPN.IN_FEATURES)
     checks = [
         ("MODEL.META_ARCHITECTURE", m.META_ARCHITECTURE,
          m.META_ARCHITECTURE == "GeneralizedRCNN_WSOVOD", "mixed datasets"),
         ("MODEL.BACKBONE.NAME", m.BACKBONE.NAME,
-         m.BACKBONE.NAME in _RESNET_BACKBONES + _VGG_BACKBONES, "Swin and other backbones"),
+         m.BACKBONE.NAME in _RESNET_BACKBONES + _VGG_BACKBONES + _SWIN_BACKBONES,
+         "other backbones"),
         ("MODEL.VGG.DEPTH", m.VGG.DEPTH, not vgg or m.VGG.DEPTH == 16, "VGG other than VGG16"),
         ("MODEL.ROI_BOX_HEAD.POOLER_TYPE", pooler,
          pooler in ("ROIPool", "ROILoopPool", "ROIAlign", "ROIAlignV2"), "other pooler types"),
         ("MODEL.MRRP.MRRP_STAGE", mrrp.MRRP_STAGE,
-         not mrrp.MRRP_ON or mrrp.MRRP_STAGE == last_stage,
+         not mrrp.MRRP_ON or swin or mrrp.MRRP_STAGE == last_stage,
          f"MRRP stages other than the backbone's last, {last_stage}"),
         ("MODEL.MRRP.BRANCH_DILATIONS", list(mrrp.BRANCH_DILATIONS),
          not mrrp.MRRP_ON or len(mrrp.BRANCH_DILATIONS) == mrrp.NUM_BRANCH,
@@ -368,19 +413,33 @@ def check_supported(cfg: CN) -> None:
          not mrrp.MRRP_ON or -1 <= mrrp.TEST_BRANCH_IDX < mrrp.NUM_BRANCH,
          "-1 (all branches) or a branch index"),
         ("MODEL.RESNETS.DEFORM_ON_PER_STAGE", list(m.RESNETS.DEFORM_ON_PER_STAGE),
-         vgg or not any(m.RESNETS.DEFORM_ON_PER_STAGE), "deformable convs"),
+         vgg or swin or not any(m.RESNETS.DEFORM_ON_PER_STAGE), "deformable convs"),
         ("MODEL.RESNETS.NORM", m.RESNETS.NORM,
-         vgg or m.RESNETS.NORM in ("FrozenBN", "BN", "SyncBN"), "norms other than frozen BN"),
+         vgg or swin or m.RESNETS.NORM in ("FrozenBN", "BN", "SyncBN"),
+         "norms other than frozen BN"),
         ("MODEL.PROPOSAL_GENERATOR.NAME", m.PROPOSAL_GENERATOR.NAME,
          m.PROPOSAL_GENERATOR.NAME == "WSOVODRPN_V2", "other proposal generators"),
         ("MODEL.RPN.HEAD_NAME", m.RPN.HEAD_NAME,
          m.RPN.HEAD_NAME == "StandardRPNHead", "other RPN heads"),
         ("MODEL.RPN.IN_FEATURES", list(m.RPN.IN_FEATURES),
-         len(m.RPN.IN_FEATURES) == 1, "multi-level RPN"),
+         rpn_levels == 1 or not mrrp.MRRP_ON, "MRRP on several levels"),
         ("MODEL.ROI_HEADS.NAME", m.ROI_HEADS.NAME,
          m.ROI_HEADS.NAME == "WSOVODROIHeads", "other ROI heads"),
         ("MODEL.ROI_HEADS.IN_FEATURES", list(m.ROI_HEADS.IN_FEATURES),
-         len(m.ROI_HEADS.IN_FEATURES) == 1, "multi-level pooling"),
+         pooled_levels == 1 or m.BACKBONE.NAME == "build_swin_fpn_backbone",
+         "several pooled levels of a backbone other than the Swin FPN"),
+        ("MODEL.ROI_HEADS.IN_FEATURES", list(m.ROI_HEADS.IN_FEATURES),
+         pooled_levels == 1 or not mrrp.MRRP_ON,
+         "MRRP on several levels: the JAX package's MRRP pooler takes one level"),
+        ("MODEL.ROI_BOX_HEAD.POOLER_TYPE", pooler,
+         pooled_levels == 1 or pooler in ("ROIPool", "ROILoopPool"),
+         "a routed multi-level align"),
+        ("MODEL.ROI_HEADS.IN_FEATURES", list(m.ROI_HEADS.IN_FEATURES),
+         pooled_levels == 1 or _consecutive_levels(m.ROI_HEADS.IN_FEATURES),
+         "several pooled levels other than consecutive FPN levels from fine to coarse "
+         "(p2, p3, ...)"),
+        ("MODEL.MRRP.MRRP_ON", mrrp.MRRP_ON, not (mrrp.MRRP_ON and swin),
+         "MRRP on a Swin backbone"),
         ("MODEL.ROI_BOX_HEAD.NAME", m.ROI_BOX_HEAD.NAME,
          m.ROI_BOX_HEAD.NAME == "DiscriminativeAdaptationNeck", "other box heads"),
         ("MODEL.ROI_BOX_HEAD.NUM_CONV", m.ROI_BOX_HEAD.NUM_CONV,
@@ -410,7 +469,7 @@ def check_supported(cfg: CN) -> None:
     for key, value, ok, why in checks:
         if not ok:
             _refuse(key, value, why)
-    names = list((m.VGG if vgg else m.RESNETS).OUT_FEATURES)
+    names = _feature_names(m)
     for key, value in (("MODEL.RPN.IN_FEATURES", m.RPN.IN_FEATURES),
                        ("MODEL.ROI_HEADS.IN_FEATURES", m.ROI_HEADS.IN_FEATURES)):
         missing = [f for f in value if f not in names]
@@ -424,7 +483,8 @@ def check_train_supported(cfg: CN) -> None:
     raise ``NotImplementedError`` naming the first one that asks for a path
     the port's trainer does not have. Training is ported for every detector
     ``check_supported`` admits: WSR ResNet or VGG16, plain or MRRP at the
-    last stage, with any of the four poolers, except that the windowed
+    last stage, with any of the four poolers (a Swin backbone and several
+    pooled levels are refused by name), except that the windowed
     ROIAlign (``TPU.ROI_ALIGN_KERNEL = "pallas_approx"``) trains only while
     the pooled stage is frozen: its TPU kernel, ``roi_align_pallas``, has no
     VJP in the JAX package (ROADMAP 3.10). ``WSOVOD.BBOX_REFINE`` is the
@@ -435,6 +495,15 @@ def check_train_supported(cfg: CN) -> None:
     check_supported(cfg)
     m = cfg.MODEL
     ir = cfg.WSOVOD.INSTANCE_REFINEMENT
+    for key, value, ok, why in (
+            ("MODEL.ROI_HEADS.IN_FEATURES", list(m.ROI_HEADS.IN_FEATURES),
+             len(m.ROI_HEADS.IN_FEATURES) == 1,
+             "training on several pooled levels: the JAX package gives its per-image pools "
+             "(kernel 2.5, wsovod_tpu/ops/pallas/roi_pool_kernel.py) no VJP"),
+            ("MODEL.BACKBONE.NAME", m.BACKBONE.NAME, m.BACKBONE.NAME not in _SWIN_BACKBONES,
+             "training a Swin backbone")):
+        if not ok:
+            _refuse(key, value, why)
     pooled = m.ROI_HEADS.IN_FEATURES[0]
     pooled_trains = int(pooled[-1]) > m.BACKBONE.FREEZE_AT  # res{n} / plain{n}: stage n
     windowed = (m.ROI_BOX_HEAD.POOLER_TYPE == "ROIAlignV2"

@@ -4,7 +4,12 @@
 // roi_pool_fused_batched (loop_pool=True, with src_tbl), which the MRRP
 // pooler reaches through roi_pool_fused_branched_ad, in its emission modes
 // quant="none", "maxabs" and "int8" (roi_pool_common.cuh; per row: stat
-// [rows, B, N] maxabs, or [rows, B, n_ct, N] int8 scales). It computes, for every
+// [rows, B, N] maxabs, or [rows, B, n_ct, N] int8 scales); and, in its
+// level-routed mode, the per-image wsovod_tpu/ops/pallas/roi_pool_kernel.py
+// roi_loop_pool_pallas, which the JAX pooler runs on every FPN level for
+// every ROI: here each ROI is pooled on its own level only, from a
+// per-level table of maps (roi_pool_common.cuh), its frame and context
+// boxes clipped to that level's map. It computes, for every
 // image b, ROI n and requested row r < rows,
 //
 //   out[r, b, n, ph, pw, c] = roi_loop_pool(feat[src[b, n]], rois[b], P, scale, ratio)
@@ -54,13 +59,15 @@ using roi_pool::Pair;
 __device__ __forceinline__ int imin(int a, int b) { return a < b ? a : b; }
 __device__ __forceinline__ int imax(int a, int b) { return a > b ? a : b; }
 
-template <typename T, int MODE>
+template <typename T, int MODE, bool LEVELS>
 __global__ void roi_loop_pool_gated_kernel(const T* __restrict__ feat, const int4* __restrict__ geo,
                                            const int* __restrict__ src,
                                            const void* __restrict__ gate, void* __restrict__ out,
                                            float* __restrict__ stat, int B, int H, int W, int C,
                                            int N, int c_base, int c_take, int c_tile, int P,
-                                           int rows) {
+                                           int rows,
+                                           const __grid_constant__ roi_pool::Levels levels,
+                                           const int* __restrict__ level) {
   using V = typename Pair<T>::V;
   extern __shared__ float2 stash[];  // kInt8: [P * P][c_tile / 2] pre-gate values
   __shared__ float red[32];
@@ -72,7 +79,17 @@ __global__ void roi_loop_pool_gated_kernel(const T* __restrict__ feat, const int
   const int4 outer_region = geo[roi * 4 + 1];
   const int4 inner_hole = geo[roi * 4 + 2];
   const int4 roi_hole = geo[roi * 4 + 3];
-  const T* fb = feat + (size_t)src[roi] * H * W * C + c_base;
+  int copy;
+  if constexpr (LEVELS) {  // image b of the ROI's level
+    const int l = level[roi];
+    feat = static_cast<const T*>(levels.feat[l]);
+    H = levels.h[l];
+    W = levels.w[l];
+    copy = b;
+  } else {
+    copy = src[roi];
+  }
+  const T* fb = feat + (size_t)copy * H * W * C + c_base;
   const int pairs = c_take / 2;
   const size_t row_pairs = (size_t)W * C / 2;  // one image row, in channel pairs
   const int pix_pairs = C / 2;
@@ -163,12 +180,13 @@ __global__ void roi_loop_pool_gated_kernel(const T* __restrict__ feat, const int
   }
 }
 
-template <typename T, int MODE>
+template <typename T, int MODE, bool LEVELS = false>
 int launch(const void* feat, const void* geo, const void* src, const void* gate, void* out,
            float* stat, int B, int H, int W, int C, int N, int c_base, int c_take, int c_tile,
-           int P, int rows, void* stream) {
+           int P, int rows, void* stream, const roi_pool::Levels& levels = {},
+           const int* level = nullptr) {
   if (B == 0 || N == 0 || c_take == 0 || rows == 0) return 0;
-  auto kernel = roi_loop_pool_gated_kernel<T, MODE>;
+  auto kernel = roi_loop_pool_gated_kernel<T, MODE, LEVELS>;
   size_t shmem = 0;
   int threads = roi_pool::block_threads(c_take / 2);
   if (MODE == roi_pool::kInt8) {
@@ -181,8 +199,19 @@ int launch(const void* feat, const void* geo, const void* src, const void* gate,
   const dim3 grid(N, B);
   kernel<<<grid, threads, shmem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const T*>(feat), static_cast<const int4*>(geo), static_cast<const int*>(src),
-      gate, out, stat, B, H, W, C, N, c_base, c_take, c_tile, P, rows);
+      gate, out, stat, B, H, W, C, N, c_base, c_take, c_tile, P, rows, levels, level);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int launch_levels(const void* const* feats, const int* hs, const int* ws, int L, const void* geo,
+                  const void* level, const void* gate, void* out, int B, int C, int N, int c_base,
+                  int c_take, int P, int rows, void* stream) {
+  roi_pool::Levels levels;
+  if (!roi_pool::make_levels(levels, feats, hs, ws, L)) return static_cast<int>(cudaErrorInvalidValue);
+  return launch<T, roi_pool::kNone, true>(feats[0], geo, nullptr, gate, out, nullptr, B, hs[0],
+                                          ws[0], C, N, c_base, c_take, c_take, P, rows, stream,
+                                          levels, static_cast<const int*>(level));
 }
 
 }  // namespace
@@ -248,4 +277,28 @@ extern "C" int wsovod_roi_loop_pool_gated_int8_f32(const void* feat, const void*
                                                    int P, int rows, void* stream) {
   return launch<float, roi_pool::kInt8>(feat, geo, src, gate, out, static_cast<float*>(scales), B,
                                         H, W, C, N, c_base, c_take, c_tile, P, rows, stream);
+}
+
+// The level-routed mode (kernel 2.5), quant="none": `feats` a host array of
+// L device pointers, level l's maps [B, hs[l], ws[l], C] in the feature
+// dtype (hs, ws host arrays, L <= 8); `geo` int32 [B, N, 16] made with each
+// ROI's own level (its scale, and its frame and context boxes clipped to
+// that level's map); `level` int32 [B, N], each entry in [0, L): ROI n of
+// image b reads feats[level[b, n]][b]. `gate` and `out` as in quant="none".
+extern "C" int wsovod_roi_loop_pool_levels_bf16(const void* const* feats, const int* hs,
+                                                const int* ws, int L, const void* geo,
+                                                const void* level, const void* gate, void* out,
+                                                int B, int C, int N, int c_base, int c_take, int P,
+                                                int rows, void* stream) {
+  return launch_levels<__nv_bfloat16>(feats, hs, ws, L, geo, level, gate, out, B, C, N, c_base,
+                                      c_take, P, rows, stream);
+}
+
+extern "C" int wsovod_roi_loop_pool_levels_f32(const void* const* feats, const int* hs,
+                                               const int* ws, int L, const void* geo,
+                                               const void* level, const void* gate, void* out,
+                                               int B, int C, int N, int c_base, int c_take, int P,
+                                               int rows, void* stream) {
+  return launch_levels<float>(feats, hs, ws, L, geo, level, gate, out, B, C, N, c_base, c_take, P,
+                              rows, stream);
 }

@@ -25,6 +25,13 @@
 // The block reduction of a max: every thread of the block calls block_max
 // with its partial (>= 0); it returns the block's max to every thread. The
 // block's size must be a multiple of 32 (full-warp shuffles).
+//
+// The level-routed mode (kernel 2.5, the pooler of an FPN's several
+// levels): each ROI carries the index of its FPN level, and the kernel
+// reads that level's map through a small table of per-level base pointers
+// and sizes passed by value (Levels). The levels stay separate tensors:
+// nothing is concatenated or copied. A ROI of image b on level l reads
+// feat[l][b], an [H_l, W_l, C] map.
 
 #pragma once
 
@@ -71,6 +78,27 @@ struct Pair<int8_t> {
     *p = make_char2((signed char)a, (signed char)b);
   }
 };
+
+constexpr int kMaxLevels = 8;
+
+// Per-level maps [B, h[l], w[l], C] of one dtype, passed by value as a kernel
+// parameter (__grid_constant__: read from parameter space, never copied).
+struct Levels {
+  const void* feat[kMaxLevels];
+  int h[kMaxLevels];
+  int w[kMaxLevels];
+};
+
+// The table of `n` levels from host arrays; false if n is out of range.
+inline bool make_levels(Levels& lv, const void* const* feat, const int* h, const int* w, int n) {
+  if (n < 1 || n > kMaxLevels) return false;
+  for (int l = 0; l < kMaxLevels; ++l) {
+    lv.feat[l] = l < n ? feat[l] : nullptr;
+    lv.h[l] = l < n ? h[l] : 0;
+    lv.w[l] = l < n ? w[l] : 0;
+  }
+  return true;
+}
 
 __device__ __forceinline__ int clip(int v, int hi) { return v < 0 ? 0 : (v > hi ? hi : v); }
 

@@ -5,7 +5,12 @@
 // main path, with or without its per-ROI source table (src_tbl, as
 // roi_pool_fused_branched_ad reaches it for MRRP with the plain ROIPool), in
 // each of its emission modes (quant="none", "maxabs", "int8", "tile8";
-// roi_pool_common.cuh).
+// roi_pool_common.cuh); and, in its level-routed mode, the per-image pool
+// wsovod_tpu/ops/pallas/roi_pool_kernel.py roi_pool_pallas, which the JAX
+// pooler runs on every FPN level for every ROI before it keeps each ROI's
+// level: here each ROI is pooled on its own level only, from a per-level
+// table of maps (roi_pool_common.cuh), gated as the unfused ROI heads gate
+// it (the gate rounded to the feature dtype, one multiply).
 // It computes, for every image b and ROI n,
 //
 //   out[b, n, ph, pw, c] = roi_pool(feat[s], rois[b], P, scale)[n, ph, pw, c_base + c]
@@ -52,12 +57,14 @@ namespace {
 using roi_pool::clip;
 using roi_pool::Pair;
 
-template <typename T, int MODE>
+template <typename T, int MODE, bool LEVELS>
 __global__ void roi_pool_gated_kernel(const T* __restrict__ feat, const int4* __restrict__ region,
                                       const int* __restrict__ src, const void* __restrict__ gate,
                                       void* __restrict__ out, float* __restrict__ stat, int H,
                                       int W, int C, int N, int c_base, int c_take, int c_tile,
-                                      int P, float neg_floor) {
+                                      int P, float neg_floor,
+                                      const __grid_constant__ roi_pool::Levels levels,
+                                      const int* __restrict__ level) {
   using V = typename Pair<T>::V;
   extern __shared__ float2 stash[];  // kInt8: [P * P][c_tile / 2] pre-gate values
   __shared__ float red[32];
@@ -65,7 +72,14 @@ __global__ void roi_pool_gated_kernel(const T* __restrict__ feat, const int4* __
   const int b = blockIdx.y;
   const size_t roi = (size_t)b * N + n;
   const int4 r = region[roi];  // (x1, y1, w, h), w and h >= 1
-  const int copy = src != nullptr ? src[roi] : b;  // the feature copy
+  int copy = src != nullptr ? src[roi] : b;  // the feature copy
+  if constexpr (LEVELS) {  // image b of the ROI's level
+    const int l = level[roi];
+    feat = static_cast<const T*>(levels.feat[l]);
+    H = levels.h[l];
+    W = levels.w[l];
+    copy = b;
+  }
   const T* fb = feat + (size_t)copy * H * W * C + c_base;
   const int pairs = c_take / 2;
   const size_t row_pairs = (size_t)W * C / 2;  // one image row, in channel pairs
@@ -143,12 +157,13 @@ __global__ void roi_pool_gated_kernel(const T* __restrict__ feat, const int4* __
   }
 }
 
-template <typename T, int MODE>
+template <typename T, int MODE, bool LEVELS = false>
 int launch(const void* feat, const void* region, const void* src, const void* gate, void* out,
            float* stat, int B, int H, int W, int C, int N, int c_base, int c_take, int c_tile,
-           int P, float neg_floor, void* stream) {
+           int P, float neg_floor, void* stream, const roi_pool::Levels& levels = {},
+           const int* level = nullptr) {
   if (B == 0 || N == 0 || c_take == 0) return 0;
-  auto kernel = roi_pool_gated_kernel<T, MODE>;
+  auto kernel = roi_pool_gated_kernel<T, MODE, LEVELS>;
   size_t shmem = 0;
   int threads = roi_pool::block_threads(c_take / 2);
   if (MODE == roi_pool::kInt8) {
@@ -161,8 +176,19 @@ int launch(const void* feat, const void* region, const void* src, const void* ga
   const dim3 grid(N, B);
   kernel<<<grid, threads, shmem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const T*>(feat), static_cast<const int4*>(region), static_cast<const int*>(src),
-      gate, out, stat, H, W, C, N, c_base, c_take, c_tile, P, neg_floor);
+      gate, out, stat, H, W, C, N, c_base, c_take, c_tile, P, neg_floor, levels, level);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int launch_levels(const void* const* feats, const int* hs, const int* ws, int L,
+                  const void* region, const void* level, const void* gate, void* out, int B,
+                  int C, int N, int c_base, int c_take, int P, float neg_floor, void* stream) {
+  roi_pool::Levels levels;
+  if (!roi_pool::make_levels(levels, feats, hs, ws, L)) return static_cast<int>(cudaErrorInvalidValue);
+  return launch<T, roi_pool::kNone, true>(feats[0], region, nullptr, gate, out, nullptr, B, hs[0],
+                                          ws[0], C, N, c_base, c_take, c_take, P, neg_floor,
+                                          stream, levels, static_cast<const int*>(level));
 }
 
 }  // namespace
@@ -238,4 +264,28 @@ extern "C" int wsovod_roi_pool_gated_tile8(const void* feat, const void* region,
                                            int P, void* stream) {
   return launch<int8_t, roi_pool::kTile8>(feat, region, nullptr, nullptr, out, nullptr, B, H, W,
                                           C, N, c_base, c_take, c_take, P, -INFINITY, stream);
+}
+
+// The level-routed mode (kernel 2.5), quant="none": `feats` a host array of
+// L device pointers, level l's maps [B, hs[l], ws[l], C] in the feature
+// dtype (hs, ws host arrays, L <= 8); `region` int32 [B, N, 4] made with
+// each ROI's own level scale; `level` int32 [B, N], each entry in [0, L):
+// ROI n of image b reads feats[level[b, n]][b]. `gate` and `out` as in
+// quant="none".
+extern "C" int wsovod_roi_pool_levels_bf16(const void* const* feats, const int* hs, const int* ws,
+                                           int L, const void* region, const void* level,
+                                           const void* gate, void* out, int B, int C, int N,
+                                           int c_base, int c_take, int P, float neg_floor,
+                                           void* stream) {
+  return launch_levels<__nv_bfloat16>(feats, hs, ws, L, region, level, gate, out, B, C, N, c_base,
+                                      c_take, P, neg_floor, stream);
+}
+
+extern "C" int wsovod_roi_pool_levels_f32(const void* const* feats, const int* hs, const int* ws,
+                                          int L, const void* region, const void* level,
+                                          const void* gate, void* out, int B, int C, int N,
+                                          int c_base, int c_take, int P, float neg_floor,
+                                          void* stream) {
+  return launch_levels<float>(feats, hs, ws, L, region, level, gate, out, B, C, N, c_base, c_take,
+                              P, neg_floor, stream);
 }

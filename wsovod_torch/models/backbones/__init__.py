@@ -1,4 +1,5 @@
 from .resnet_wsl import WSRResNet, build_wsl_resnet_backbone
+from .swin import SwinFPN, SwinTransformer, build_swin_backbone, build_swin_fpn_backbone
 from .vgg import VGG16, build_vgg_backbone
 
 # ``MODEL.BACKBONE.NAME`` -> builder; the MRRP names build the same modules,
@@ -8,6 +9,8 @@ BACKBONES = {
     "build_mrrp_wsl_resnet_backbone": build_wsl_resnet_backbone,
     "build_vgg_backbone": build_vgg_backbone,
     "build_mrrp_vgg_backbone": build_vgg_backbone,
+    "build_swin_backbone": build_swin_backbone,
+    "build_swin_fpn_backbone": build_swin_fpn_backbone,
 }
 
 
@@ -19,5 +22,6 @@ def build_backbone(cfg):
     return BACKBONES[name](cfg)
 
 
-__all__ = ["VGG16", "WSRResNet", "build_backbone", "build_vgg_backbone",
+__all__ = ["SwinFPN", "SwinTransformer", "VGG16", "WSRResNet", "build_backbone",
+           "build_swin_backbone", "build_swin_fpn_backbone", "build_vgg_backbone",
            "build_wsl_resnet_backbone"]

@@ -10,6 +10,11 @@ it afterwards. Backbone stages up to ``MODEL.BACKBONE.FREEZE_AT`` are frozen
 package's stop-gradient at ``FREEZE_AT >= 5`` and its optimizer's frozen
 label below).
 
+With an FPN backbone (``build_swin_fpn_backbone``) the RPN proposes from
+every level of ``RPN.IN_FEATURES``, the ROI heads pool each proposal on its
+level of ``ROI_HEADS.IN_FEATURES``, and the data-aware head reads the first
+of those (p2), as the JAX meta-arch does (``meta_arch.py:135``).
+
 Under MRRP each proposal carries ``level_ids``, whose ``// 1000`` names the
 branch it pools from: RPN rows their branch, SAM rows branch 0 (the JAX
 package's inference, which passes no random key), or a random branch drawn
@@ -168,16 +173,23 @@ class GeneralizedRCNN_WSOVOD(nn.Module):
 def init_parameters(model: GeneralizedRCNN_WSOVOD, generator: torch.Generator) -> None:
     """Random parameters with the JAX package's initialiser scales (normal
     draws in place of its truncated normals), drawn from ``generator``:
-    backbone convs He fan-out, RPN convs N(0, 0.01) with zero bias, DAN fcs
-    N(0, 0.005) with bias 0.1, classifier projections and the object
-    miner's linears LeCun fan-in with zero bias, box regressor N(0, 0.001),
+    backbone convs He fan-out (a Swin backbone's own ``init_parameters``:
+    its dense and conv kernels LeCun fan-in, LayerNorms 1 and 0), RPN convs
+    N(0, 0.01) with zero bias, DAN fcs N(0, 0.005) with bias 0.1,
+    classifier projections and the object miner's linears LeCun fan-in with
+    zero bias, box regressor N(0, 0.001),
     data-aware linears U[0, 0.02) and prototypes N(0, 1). The backbone's
     frozen-BN scales are drawn U[0.4, 0.8), its other statistics keep their
     identity defaults: with identity statistics the random convs grow the activations through the residual stages until, at
     the R50 test shape (688x1056), res5 reaches about 1e4 and every RPN
     delta overflows, so the RPN proposes nothing; these scales keep res5 at
     a standard deviation of about 0.3 and give the RPN valid proposals."""
+    init_backbone = getattr(model.backbone, "init_parameters", None)
+    if init_backbone is not None:  # the Swin backbones: their own initialisers
+        init_backbone(generator)
     for name, p in model.named_parameters():
+        if name.startswith("backbone.") and init_backbone is not None:
+            continue
         if name.startswith("backbone.") and p.dim() == 1:  # VGG's conv biases
             p.zero_()
         elif name.startswith("backbone."):
@@ -236,7 +248,8 @@ def build_model(cfg, device=None, seed: Optional[int] = 0) -> GeneralizedRCNN_WS
     channels = backbone.output_channels()[in_feature]
     strides = list(backbone.output_strides().values())
     proposal_generator = build_proposal_generator(cfg, channels, strides)
-    roi_heads = build_roi_heads(cfg, build_pooler(cfg, strides), channels, dtype)
+    pooled_strides = [backbone.output_strides()[f] for f in cfg.MODEL.ROI_HEADS.IN_FEATURES]
+    roi_heads = build_roi_heads(cfg, build_pooler(cfg, pooled_strides), channels, dtype)
     ov = cfg.MODEL.ROI_BOX_HEAD.OPEN_VOCABULARY
     mrrp_num_branch = cfg.MODEL.MRRP.NUM_BRANCH if cfg.MODEL.MRRP.MRRP_ON else 0
     data_aware = (

@@ -1,6 +1,6 @@
 """ROI feature pooler for the gated ROIPool, ROILoopPool and ROIAlign
 (counterpart of ``wsovod_tpu/models/poolers.py`` ``ROIPooler.fused_chunk_pool``
-and ``_pool_one_level``, ``:171-186,288-298,571-607,739-841``).
+and ``_pool_one_level``, ``:171-186,288-298,571-607,739-873``).
 
 The pooler applies a per-ROI gate inside the pool kernel, zeroes invalid
 boxes, and hands the DAN one channel chunk of ``c_take`` channels at a time
@@ -39,6 +39,18 @@ one branch's tile; a per-ROI source index needs neither. None of its TPU
 schedule toggles (hpyr, wsplit, cls, n56c, fullrow) or ROIAlign size
 buckets exist here.
 
+Over several levels (an FPN's ``ROI_HEADS.IN_FEATURES``, ROIPool or
+ROILoopPool, inference), each ROI is assigned its level by d2's canonical
+rule (``assign_boxes_to_levels``) and pooled on that level only by the
+level-routed kernels (``roi_pool_levels``, ``roi_loop_pool_levels``,
+kernel 2.5): the JAX package's multi-level pooler pools every ROI on every
+level with its per-image pools and then keeps each ROI's level
+(``poolers.py:852-873``), which gives the same numbers. The JAX ROI heads
+pool unfused there and multiply the pooled tensor by the gate cast to its
+dtype (``roi_heads.py:257-300``); the kernels do the same in one pass, and
+fc1 takes the chunks as in the single-level path (it works row by row, so
+the JAX package's ROI chunking changes no number).
+
 With the int8 fc1 (``TPU.DAN_FC1_QUANT = "int8"``) at inference, the
 ROIPool and the ROILoopPool emit ``(payload, maxabs)`` pairs through the
 kernels' maxabs emission (``roi_pool_gated_maxabs``,
@@ -57,6 +69,7 @@ port carries no toggles.
 
 from __future__ import annotations
 
+import math
 from typing import Iterator, Optional, Sequence
 
 import torch
@@ -64,9 +77,31 @@ from torch import nn
 
 from ..ops.roi_align import WINDOW, RoIAlignGatedFunction
 from ..ops.roi_pool import (RoILoopPoolGatedFunction, RoIPoolGatedFunction,
-                            roi_loop_pool_gated_maxabs, roi_pool_gated_maxabs)
+                            roi_loop_pool_gated_maxabs, roi_loop_pool_levels,
+                            roi_pool_gated_maxabs, roi_pool_levels)
+from ..structures.boxes import box_area
 
 POOLER_TYPES = ("ROIPool", "ROILoopPool", "ROIAlign", "ROIAlignV2")
+# d2's canonical FPN level rule: a 224-px box pools on p4
+CANONICAL_BOX_SIZE = 224.0
+CANONICAL_LEVEL = 4
+
+
+def assign_boxes_to_levels(boxes: torch.Tensor, min_level: int, max_level: int,
+                           canonical_box_size: float = CANONICAL_BOX_SIZE,
+                           canonical_level: int = CANONICAL_LEVEL) -> torch.Tensor:
+    """d2's FPN level of each box, as an index from ``min_level``, int32
+    ``[...]``: ``floor(canonical_level + log2(sqrt(area) / canonical_box_size
+    + 1e-8))`` clipped to ``[min_level, max_level]``, in float32 and in the
+    order of ``wsovod_tpu/models/poolers.py:32-42`` (``sqrt(max(area,
+    1e-8))``, the division, ``+ 1e-8``, ``log2``, ``+ canonical_level``,
+    ``floor``, the clip). The division by the constant is a multiplication
+    by its float32 reciprocal, as XLA compiles it (ROADMAP 3.9), on the CPU
+    and on the card alike."""
+    sqrt_area = torch.sqrt(torch.clamp(box_area(boxes.float()), min=1e-8))
+    inv = torch.tensor(1.0 / canonical_box_size, dtype=torch.float32, device=boxes.device)
+    lvl = torch.floor(canonical_level + torch.log2(sqrt_area * inv + 1e-8))
+    return (torch.clamp(lvl, min_level, max_level).to(torch.int32) - min_level)
 
 
 def chunk_width(channels: int, pooler_type: str = "ROIPool", fc1_quant: str = "none") -> int:
@@ -78,14 +113,18 @@ def chunk_width(channels: int, pooler_type: str = "ROIPool", fc1_quant: str = "n
 
 
 class ROIPooler(nn.Module):
-    def __init__(self, output_size: int, scale: float, pooler_type: str = "ROIPool",
+    def __init__(self, output_size: int, scales: Sequence[float], pooler_type: str = "ROIPool",
                  context_ratio: float = 1.8, sampling_ratio: int = 0,
                  align_kernel: str = "fused"):
         super().__init__()
         if pooler_type not in POOLER_TYPES:
             raise ValueError(f"unsupported pooler type {pooler_type}")
         self.output_size = output_size
-        self.scale = float(scale)
+        self.scales = tuple(float(s) for s in scales)
+        self.scale = self.scales[0]
+        # the pooled levels, log2 of their strides (one level: unused)
+        self.min_level = int(round(-math.log2(self.scales[0])))
+        self.max_level = int(round(-math.log2(self.scales[-1])))
         self.pooler_type = pooler_type
         self.context_ratio = context_ratio
         self.sampling_ratio = sampling_ratio if sampling_ratio > 0 else 2
@@ -97,16 +136,26 @@ class ROIPooler(nn.Module):
         pairs: the ROIPool and the ROILoopPool."""
         return fc1_int8 and self.pooler_type in ("ROIPool", "ROILoopPool")
 
-    def forward(self, feat: torch.Tensor, boxes: torch.Tensor, gate: torch.Tensor,
-                c_base: int, c_take: int, src: Optional[torch.Tensor] = None,
-                rows: int = 1, maxabs: bool = False):
+    def forward(self, feat, boxes: torch.Tensor, gate: torch.Tensor, c_base: int, c_take: int,
+                src: Optional[torch.Tensor] = None, rows: int = 1, maxabs: bool = False,
+                level: Optional[torch.Tensor] = None):
         """One gated chunk ``[B, N, P, P, c_take]``: ``roi_pool_gated`` or
         ``roi_align_gated`` reading copy ``src [B, N]`` (``None``: each ROI
         its own image), or the ROI row of ``roi_loop_pool_gated`` reading
         copy ``src``; with ``rows`` 3 all of its rows, ``[3, B, N, P, P,
         c_take]``. All differentiable (the windowed align in its gate
         only). With ``maxabs`` (inference, ROIPool or the ROILoopPool's ROI
-        row) the pair ``(chunk, max |chunk| per ROI [B, N])``."""
+        row) the pair ``(chunk, max |chunk| per ROI [B, N])``. With ``level
+        [B, N]`` (several pooled levels; ``feat`` a tuple of the levels'
+        maps), the level-routed ``roi_pool_levels`` or
+        ``roi_loop_pool_levels``: each ROI on its own level, no backward."""
+        if level is not None:
+            if self.pooler_type == "ROILoopPool":
+                out = roi_loop_pool_levels(feat, boxes, gate, level, c_base, c_take, rows,
+                                           self.output_size, self.scales, self.context_ratio)
+                return out[0] if rows == 1 else out
+            return roi_pool_levels(feat, boxes, gate, level, c_base, c_take, self.output_size,
+                                   self.scales)
         if maxabs:
             if self.pooler_type == "ROILoopPool":
                 out, m = roi_loop_pool_gated_maxabs(feat, boxes, gate, src, c_base, c_take, 1,
@@ -126,7 +175,7 @@ class ROIPooler(nn.Module):
         return RoIPoolGatedFunction.apply(feat, boxes, gate, c_base, c_take, self.output_size,
                                           self.scale, src)
 
-    def chunks(self, feat: torch.Tensor, boxes: torch.Tensor, gate: torch.Tensor,
+    def chunks(self, feat, boxes: torch.Tensor, gate: torch.Tensor,
                valid: torch.Tensor, c_take: int, level_ids: Optional[torch.Tensor] = None,
                rows: int = 1, maxabs: bool = False) -> Iterator:
         """Lazily pool every channel chunk of ``feat [S, H, W, C]`` for
@@ -134,11 +183,27 @@ class ROIPooler(nn.Module):
         [B, N]``; ``S`` is ``B``, or ``n_br * B`` under MRRP, where each ROI
         reads its branch's copy by ``level_ids``. ROILoopPool chunks have
         ``rows`` rows; with ``maxabs`` each chunk is a ``(chunk, maxabs)``
-        pair (``forward``)."""
+        pair (``forward``). ``feat`` may be a sequence of several levels'
+        maps ``[B, H_l, W_l, C]``, one per scale: then each ROI goes to its
+        level by ``assign_boxes_to_levels`` (on the zeroed boxes, as
+        ``wsovod_tpu/models/poolers.py:852-860``), once for all chunks.
+        Every argument of ``forward`` is passed positionally, so a forward
+        hook sees them all."""
         gate = gate.float().contiguous()
         zero = torch.zeros((), dtype=torch.float32, device=boxes.device)
         boxes = torch.where(valid[..., None], boxes.float(), zero).contiguous()
         b = boxes.shape[0]
+        if isinstance(feat, (list, tuple)) and len(feat) == 1:
+            feat = feat[0]
+        if isinstance(feat, (list, tuple)):
+            feats = tuple(feat)
+            if len(feats) != len(self.scales):
+                raise ValueError(f"{len(feats)} levels for {len(self.scales)} scales")
+            level = assign_boxes_to_levels(boxes, self.min_level, self.max_level,
+                                           CANONICAL_BOX_SIZE, CANONICAL_LEVEL).contiguous()
+            for c_base in range(0, feats[0].shape[-1], c_take):
+                yield self(feats, boxes, gate, c_base, c_take, None, rows, maxabs, level)
+            return
         src = None
         if self.pooler_type == "ROILoopPool" or feat.shape[0] != b:
             n_br = feat.shape[0] // b
@@ -148,13 +213,17 @@ class ROIPooler(nn.Module):
                       else torch.remainder(torch.div(level_ids, 1000, rounding_mode="floor"), n_br))
             src = (branch * b + image).to(torch.int32).contiguous()
         for c_base in range(0, feat.shape[-1], c_take):
-            yield self(feat, boxes, gate, c_base, c_take, src, rows, maxabs)
+            yield self(feat, boxes, gate, c_base, c_take, src, rows, maxabs, None)
 
 
 def build_pooler(cfg, strides: Sequence[int]) -> ROIPooler:
-    """Single-level ROIPool, ROILoopPool or ROIAlign(V2)
-    (``config.check_supported`` refuses multi-level pooling)."""
+    """ROIPool, ROILoopPool or ROIAlign(V2) over the pooled features, whose
+    strides are ``strides`` (one per ``ROI_HEADS.IN_FEATURES`` entry;
+    ``config.check_supported`` admits several only for ROIPool and
+    ROILoopPool without MRRP). The levels are assigned within the pooled
+    strides (d2's rule); the JAX package takes ``max_level`` from every
+    backbone stride, p6 included (ROADMAP 3.13)."""
     rb = cfg.MODEL.ROI_BOX_HEAD
-    return ROIPooler(rb.POOLER_RESOLUTION, 1.0 / strides[0], rb.POOLER_TYPE,
+    return ROIPooler(rb.POOLER_RESOLUTION, [1.0 / s for s in strides], rb.POOLER_TYPE,
                      sampling_ratio=rb.POOLER_SAMPLING_RATIO,
                      align_kernel=cfg.TPU.ROI_ALIGN_KERNEL)

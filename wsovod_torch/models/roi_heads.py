@@ -24,9 +24,20 @@ three there too, then keeps only the ROI row (``roi_feats, _ = ...`` at
 ``roi_heads.py:518-520``); the DAN works row by row, so the ROI row's result
 is the same.
 
+With several ``ROI_HEADS.IN_FEATURES`` (an FPN's levels, inference only)
+the pooler routes each ROI to its level (``poolers.py``) and the chunks
+stream into fc1 as on one level: the JAX package pools unfused there, in
+ROI chunks of ``TPU.UNFUSED_ROI_CHUNK``, and multiplies the pooled tensor
+by the gate cast to its dtype (``wsovod_tpu/models/roi_heads.py:257-300``);
+the level-routed kernels round the gate to the features' dtype and multiply
+once, which is the same, and fc1 works row by row, so the ROI chunking
+changes no number.
+
 With ``TPU.DAN_FC1_QUANT`` ``"int8"`` fc1 is int8 at inference only (the
 JAX package's ``quant=self.fc1_quant if not train``); the ROIPool and the
-ROILoopPool then hand it ``(payload, maxabs)`` chunks (``poolers.py``)."""
+ROILoopPool then hand it ``(payload, maxabs)`` chunks (``poolers.py``). On
+several pooled levels fc1 stays in floating point with that key, as the
+JAX package's unfused path runs it (``build_roi_heads``)."""
 
 from __future__ import annotations
 
@@ -118,7 +129,7 @@ class WSOVODROIHeads(nn.Module):
         vector added, the miner's input the ROI row again or, for a
         ROILoopPool in training, the ROI, frame and context rows stacked
         ``[3, B, P, F]``."""
-        feat = features[self.in_features[0]]
+        feat = tuple(features[f] for f in self.in_features)  # one map, or an FPN's levels
         valid = proposals.valid
         gate = (proposals.objectness_logits.float() + 1.0) * valid.float()
         pool_gate, row_gate = (valid.float(), gate) if train else (gate, None)
@@ -232,5 +243,8 @@ def build_roi_heads(cfg, pooler: ROIPooler, in_channels: int, dtype: torch.dtype
         box_reg_loss_weight=rb.BBOX_REG_LOSS_WEIGHT,
         box_reg_loss_type=rb.BBOX_REG_LOSS_TYPE,
         smooth_l1_beta=rb.SMOOTH_L1_BETA,
-        dan_fc1_quant=cfg.TPU.DAN_FC1_QUANT,
+        # several pooled levels: the JAX package pools unfused and runs fc1
+        # as a plain DenseGeneral, never quantized (box_head.py:248-258)
+        dan_fc1_quant=(cfg.TPU.DAN_FC1_QUANT if len(cfg.MODEL.ROI_HEADS.IN_FEATURES) == 1
+                       else "none"),
     )

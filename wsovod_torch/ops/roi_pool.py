@@ -43,9 +43,21 @@ ROI row's ``maximum(M, 0)`` and the frame's and context's ``maximum(m1,
 m2)``, both of which halve a cotangent at a tie, and the gate cotangent
 summed over the rows too.
 
+``roi_pool_levels`` and ``roi_loop_pool_levels`` are the level-routed
+modes of the two forward kernels (kernel 2.5: the counterparts of
+``wsovod_tpu/ops/pallas/roi_pool_kernel.py``'s ``roi_pool_pallas`` and
+``roi_loop_pool_pallas``, which the JAX package's multi-level pooler runs
+on every FPN level for every ROI before it keeps each ROI's level): each
+ROI carries its level index and is pooled on that level only, from a table
+of the levels' maps; gated as the unfused ROI heads gate the pooled
+tensor (the gate rounded to the features' dtype, one multiply). They have
+no backward: the JAX package gives its per-image pools no VJP.
+
 A CPU tensor takes the plain version; a CUDA tensor launches the kernel or
 raises. ``LAUNCHES``, ``LOOP_LAUNCHES``, ``BWD_LAUNCHES`` and
-``LOOP_BWD_LAUNCHES`` count the four kernels' launches.
+``LOOP_BWD_LAUNCHES`` count the four kernels' launches; the emission modes
+and the level-routed modes (``LEVEL_LAUNCHES``, ``LOOP_LEVEL_LAUNCHES``)
+have counts of their own.
 """
 
 from __future__ import annotations
@@ -65,6 +77,8 @@ MAXABS_LAUNCHES = 0
 INT8_LAUNCHES = 0
 TILE8_LAUNCHES = 0
 LOOP_MAXABS_LAUNCHES = 0
+LEVEL_LAUNCHES = 0
+LOOP_LEVEL_LAUNCHES = 0
 LOOP_INT8_LAUNCHES = 0
 
 _DTYPE_SUFFIX = {torch.bfloat16: "bf16", torch.float32: "f32"}
@@ -414,7 +428,7 @@ def _masked_max(f: torch.Tensor, row_in: torch.Tensor, col_in: torch.Tensor,
     return torch.where(row_in[:, :, None, :, None], colmax[:, None], neg).amax(dim=3)
 
 
-def loop_geometry(rois: torch.Tensor, spatial_scale: float, h_lim: int, w_lim: int,
+def loop_geometry(rois: torch.Tensor, spatial_scale, h_lim, w_lim,
                   context_ratio: float) -> torch.Tensor:
     """The ROILoopPool's integer geometry per ROI, int32 ``[..., 16]``:
 
@@ -429,7 +443,11 @@ def loop_geometry(rois: torch.Tensor, spatial_scale: float, h_lim: int, w_lim: i
     bins. Float32 throughout, one rounding per op, as
     ``wsovod_tpu/ops/roi_pool.py::roi_loop_pool``; the division by the ratio
     divides by a tensor, so that CPU and CUDA round it alike (a division by a
-    Python number may become a multiplication by its reciprocal on CUDA)."""
+    Python number may become a multiplication by its reciprocal on CUDA).
+
+    ``spatial_scale``, ``h_lim`` and ``w_lim`` may also be float32 tensors
+    ``[...]`` of each ROI's own (its FPN level's): ``w_lim / scale`` is an
+    integer times a power of two either way, so exact."""
     r = rois.float()
     x1, y1, x2, y2 = r.unbind(-1)
     rw, rh = x2 - x1, y2 - y1
@@ -438,18 +456,22 @@ def loop_geometry(rois: torch.Tensor, spatial_scale: float, h_lim: int, w_lim: i
     out_dw, out_dh = (rw * ratio - rw) / 2, (rh * ratio - rh) / 2
     img_w, img_h = w_lim / spatial_scale, h_lim / spatial_scale
 
+    def clip(v, lim):  # jnp.clip(v, 0, lim)
+        return torch.minimum(v.clamp(min=0.0), lim) if torch.is_tensor(lim) else v.clamp(0.0, lim)
+
     def clipped(bx1, by1, bx2, by2):
-        return torch.stack([bx1.clamp(0.0, img_w), by1.clamp(0.0, img_h),
-                            bx2.clamp(0.0, img_w), by2.clamp(0.0, img_h)], dim=-1)
+        return torch.stack([clip(bx1, img_w), clip(by1, img_h), clip(bx2, img_w),
+                            clip(by2, img_h)], dim=-1)
 
     inner = clipped(x1 + in_dw, y1 + in_dh, x2 - in_dw, y2 - in_dh)
     outer = clipped(x1 - out_dw, y1 - out_dh, x2 + out_dw, y2 + out_dh)
+    scale = spatial_scale[..., None] if torch.is_tensor(spatial_scale) else spatial_scale
 
     def ints(box):
-        return torch.floor(box * spatial_scale + 0.5).to(torch.int32)
+        return torch.floor(box * scale + 0.5).to(torch.int32)
 
-    return torch.cat([round_region(r, spatial_scale), round_region(outer, spatial_scale),
-                      ints(inner), ints(r)], dim=-1)
+    return torch.cat([round_region(r, scale), round_region(outer, scale), ints(inner), ints(r)],
+                     dim=-1)
 
 
 def _loop_rows(fs: torch.Tensor, m: torch.Tensor, rows: int, p: int) -> list:
@@ -843,15 +865,24 @@ def roi_pool_gated_tile8_plain(feat, rois, gate, c_base, c_take, output_size=7,
     return out.to(torch.int8), gate.float() * s[:, None]
 
 
-def _launch(source, entry, dtype, pointers, ints, floats=(), what="pool"):
+def _launch(source, entry, dtype, pointers, ints, floats=(), what="pool", levels=None):
     """Launch ``entry`` (the full C name, without a dtype suffix when
     ``dtype`` is None) of ``csrc/<source>`` on the current stream with
-    ``pointers`` (tensors or None), int and float arguments; raises on a
-    launch error."""
+    ``pointers`` (tensors or None), int and float arguments; with
+    ``levels`` (a level-routed mode's maps) the per-level table comes
+    first: host arrays of their base pointers, heights and widths, and
+    their count. Raises on a launch error."""
     from ..kernels import load
 
     fn = getattr(load(source), entry if dtype is None else f"{entry}_{_DTYPE_SUFFIX[dtype]}")
-    fn.argtypes = ([ctypes.c_void_p] * len(pointers) + [ctypes.c_int] * len(ints)
+    table = []
+    if levels is not None:
+        n = len(levels)
+        table = [(ctypes.c_void_p * n)(*[f.data_ptr() for f in levels]),
+                 (ctypes.c_int * n)(*[f.shape[1] for f in levels]),
+                 (ctypes.c_int * n)(*[f.shape[2] for f in levels]), n]
+    head = [ctypes.c_void_p] * 3 + [ctypes.c_int] if table else []
+    fn.argtypes = (head + [ctypes.c_void_p] * len(pointers) + [ctypes.c_int] * len(ints)
                    + [ctypes.c_float] * len(floats) + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     dev = next(t.device for t in pointers if t is not None)
@@ -859,7 +890,7 @@ def _launch(source, entry, dtype, pointers, ints, floats=(), what="pool"):
     # still run: the caching allocator reuses their memory only in stream order
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = fn(*[_ptr(t) for t in pointers], *[int(i) for i in ints],
+        rc = fn(*table, *[_ptr(t) for t in pointers], *[int(i) for i in ints],
                 *[float(f) for f in floats], stream)
     if rc != 0:
         raise RuntimeError(f"{what} kernel launch failed: cudaError {rc}")
@@ -1028,3 +1059,204 @@ def roi_loop_pool_gated_int8(feat, rois, gate, src, c_base, c_take, c_tile, rows
             "roi_loop_pool_gated_int8")
     LOOP_INT8_LAUNCHES += 1
     return out, scales
+
+
+# ------------------------------------------------------------------------
+# Kernel 2.5: the level-routed pools of the multi-level (FPN) pooler.
+
+
+def _per_roi(values, level: torch.Tensor) -> torch.Tensor:
+    """Each ROI's entry of the per-level ``values``, float32 ``[B, N]``."""
+    return torch.tensor([float(v) for v in values], dtype=torch.float32,
+                        device=level.device)[level.long()]
+
+
+def level_scales(level: torch.Tensor, scales) -> torch.Tensor:
+    """Each ROI's level scale, float32 ``[B, N, 1]``, for ``round_region``."""
+    return _per_roi(scales, level)[..., None]
+
+
+def level_loop_geometry(rois: torch.Tensor, level: torch.Tensor, scales, sizes,
+                        context_ratio: float) -> torch.Tensor:
+    """``loop_geometry`` of each ROI on its own level, int32 ``[B, N, 16]``:
+    its level's scale, and its frame and context boxes clipped to
+    ``w_lim / scale`` and ``h_lim / scale`` of that level's map (``sizes``:
+    ``(h_lim, w_lim)`` per level; an FPN's coarse levels are padded, so these
+    bounds differ between levels), in one pass over per-ROI tensors."""
+    return loop_geometry(rois, _per_roi(scales, level), _per_roi([h for h, _ in sizes], level),
+                         _per_roi([w for _, w in sizes], level), context_ratio)
+
+
+def _level_groups(level: torch.Tensor, i: int, lvl: int, step: int):
+    """Indices of image ``i``'s ROIs on level ``lvl``, in groups of at most
+    ``step``."""
+    idx = torch.nonzero(level[i] == lvl).squeeze(1)
+    for lo in range(0, idx.numel(), step):
+        yield idx[lo : lo + step]
+
+
+def _check_levels(feats, rois, gate, level, scales, c_base, c_take, what):
+    """``feats``: per level ``[B, H_l, W_l, C]`` of one dtype and device;
+    ``rois [B, N, 4]``, ``gate`` and ``level [B, N]`` (integer in ``[0,
+    L)``: on the CPU checked here, on the card by a device-side assert);
+    one scale per level. The pools have no backward (the JAX package gives
+    its per-image pools no VJP)."""
+    feats = list(feats)
+    if not feats or len(feats) != len(scales):
+        raise ValueError(f"{what}: one scale per level, got {len(feats)} levels and "
+                         f"{len(scales)} scales")
+    b, n = rois.shape[:2]
+    c = feats[0].shape[-1]
+    for f in feats:
+        if f.dim() != 4 or f.shape[0] != b or f.shape[3] != c:
+            raise ValueError(f"{what}: every level must be [B={b}, H, W, C={c}], got "
+                             f"{tuple(f.shape)}")
+        if f.dtype != feats[0].dtype or f.device != feats[0].device:
+            raise ValueError(f"{what}: the levels differ in dtype or device")
+    if rois.shape != (b, n, 4) or gate.shape != (b, n) or level.shape != (b, n):
+        raise ValueError(f"{what}: rois [B, N, 4], gate and level [B, N]: got "
+                         f"{tuple(rois.shape)}, {tuple(gate.shape)}, {tuple(level.shape)}")
+    if level.dtype not in (torch.int32, torch.int64):
+        raise TypeError(f"{what}: level must be an integer tensor, not {level.dtype}")
+    if not (rois.device == gate.device == level.device == feats[0].device):
+        raise ValueError(f"{what}: feats, rois, gate and level must be on one device")
+    if not (0 <= c_base and c_take > 0 and c_base + c_take <= c):
+        raise ValueError(f"{what}: channel chunk [{c_base}, {c_base + c_take}) outside C={c}")
+    if feats[0].device.type == "cpu" and level.numel() and not (
+            0 <= int(level.min()) and int(level.max()) < len(feats)):
+        raise ValueError(f"{what}: level must lie in [0, {len(feats)})")
+    if torch.is_grad_enabled() and any(t.requires_grad for t in feats + [gate]):
+        raise NotImplementedError(f"{what} has no backward: its TPU kernel has no VJP")
+    return feats
+
+
+def roi_pool_levels_plain(feats, rois, gate, level, c_base, c_take, output_size=7,
+                          scales=(0.25,), max_elems: int = 1 << 27) -> torch.Tensor:
+    """The plain PyTorch version of ``roi_pool_levels``: per level and
+    image, the reference's separable masked max of the ROIs on that level
+    (``wsovod_tpu/ops/roi_pool.py::roi_pool`` with the level's scale), in
+    groups sized so the ``[n, P, H, W, c]`` temporary stays under
+    ``max_elems``; each ROI is pooled on its own level only."""
+    b, n = rois.shape[:2]
+    p = output_size
+    dtype, dev = feats[0].dtype, feats[0].device
+    neg = torch.tensor(NEG_INF, dtype=dtype, device=dev)
+    zero = torch.zeros((), dtype=dtype, device=dev)
+    g = gate.to(dtype)
+    out = torch.zeros((b, n, p, p, c_take), dtype=dtype, device=dev)
+    for lvl, (feat, s) in enumerate(zip(feats, scales)):
+        _, h_lim, w_lim, _ = feat.shape
+        f = feat[..., c_base : c_base + c_take]
+        reg = round_region(rois, float(s))
+        hlo, hhi = _bin_edges(reg[..., 1], reg[..., 3], p, h_lim)
+        wlo, whi = _bin_edges(reg[..., 0], reg[..., 2], p, w_lim)
+        hidx = torch.arange(h_lim, device=dev)
+        widx = torch.arange(w_lim, device=dev)
+        step = max(1, max_elems // max(1, p * h_lim * w_lim * c_take))
+        for i in range(b):
+            for sel in _level_groups(level, i, lvl, step):
+                row_in = (hidx >= hlo[i, sel, :, None]) & (hidx < hhi[i, sel, :, None])
+                col_in = (widx >= wlo[i, sel, :, None]) & (widx < whi[i, sel, :, None])
+                pooled = _masked_max(f[i], row_in, col_in, neg)
+                out[i, sel] = torch.where(pooled <= neg, zero, pooled) * g[i, sel, None, None, None]
+    return out
+
+
+def roi_pool_levels(feats, rois, gate, level, c_base, c_take, output_size=7,
+                    scales=(0.25,)) -> torch.Tensor:
+    """Gated ROIPool of channels ``[c_base, c_base + c_take)`` over an FPN's
+    levels, each ROI on its own level (kernel 2.5, the counterpart of
+    ``roi_pool_pallas`` on every level and the select of
+    ``wsovod_tpu/models/poolers.py:852-873``): ``feats`` per level ``[B,
+    H_l, W_l, C]`` (NHWC, contiguous), ``rois [B, N, 4]`` XYXY image
+    coordinates, ``gate [B, N]``, ``level [B, N]`` the ROI's level index, one
+    scale per level -> ``[B, N, P, P, c_take]`` in the levels' dtype: ROI
+    ``n`` of image ``b`` gives ``roi_pool(feats[level[b, n]][b], rois[b],
+    P, scales[level[b, n]])[n, ..., c_base:c_base+c_take] * gate[b, n]``,
+    the gate rounded to the features' dtype first. The integer regions are
+    made here in torch with each ROI's own scale. No backward."""
+    global LEVEL_LAUNCHES
+    feats = _check_levels(feats, rois, gate, level, scales, c_base, c_take, "roi_pool_levels")
+    if feats[0].device.type == "cpu":
+        return roi_pool_levels_plain(feats, rois, gate, level, c_base, c_take, output_size,
+                                     scales)
+    if feats[0].device.type != "cuda":
+        raise ValueError(f"roi_pool_levels runs on CPU or CUDA tensors, not {feats[0].device}")
+    for f in feats:
+        _check_kernel_args(f, c_base, c_take, "roi_pool_levels")
+    b, n = rois.shape[:2]
+    region = round_region(rois, level_scales(level, scales)).contiguous()
+    level32 = _src32(level, len(feats))
+    g = gate.to(feats[0].dtype).contiguous()
+    out = torch.empty((b, n, output_size, output_size, c_take), dtype=feats[0].dtype,
+                      device=feats[0].device)
+    neg_floor = float(torch.tensor(NEG_INF, dtype=feats[0].dtype))
+    _launch("roi_pool_gated.cu", "wsovod_roi_pool_levels", feats[0].dtype,
+            (region, level32, g, out), (b, feats[0].shape[3], n, c_base, c_take, output_size),
+            (neg_floor,), "roi_pool_levels", levels=feats)
+    LEVEL_LAUNCHES += 1
+    return out
+
+
+def roi_loop_pool_levels_plain(feats, rois, gate, level, c_base, c_take, rows=1, output_size=7,
+                               scales=(0.25,), context_ratio=1.8,
+                               max_elems: int = 1 << 27) -> torch.Tensor:
+    """The plain PyTorch version of ``roi_loop_pool_levels``: per level and
+    image, the reference's separable masked maxes (``_loop_rows``) of the
+    ROIs on that level with that level's geometry, in groups sized so the
+    ``[n, P, H, W, c]`` temporary stays under ``max_elems``."""
+    b, n = rois.shape[:2]
+    p = output_size
+    dtype, dev = feats[0].dtype, feats[0].device
+    g = gate.to(dtype)
+    out = torch.zeros((rows, b, n, p, p, c_take), dtype=dtype, device=dev)
+    for lvl, (feat, s) in enumerate(zip(feats, scales)):
+        _, h_lim, w_lim, _ = feat.shape
+        f = feat[..., c_base : c_base + c_take]
+        geo = loop_geometry(rois, float(s), h_lim, w_lim, context_ratio)
+        step = max(1, max_elems // max(1, p * h_lim * w_lim * c_take))
+        for i in range(b):
+            for sel in _level_groups(level, i, lvl, step):
+                gi = g[i, sel, None, None, None]
+                for r, pr in enumerate(_loop_rows(f[i], geo[i, sel], rows, p)):
+                    out[r, i, sel] = pr * gi
+    return out
+
+
+def roi_loop_pool_levels(feats, rois, gate, level, c_base, c_take, rows=1, output_size=7,
+                         scales=(0.25,), context_ratio=1.8) -> torch.Tensor:
+    """Gated ROILoopPool of channels ``[c_base, c_base + c_take)`` over an
+    FPN's levels, each ROI on its own level (kernel 2.5, the counterpart of
+    ``roi_loop_pool_pallas`` on every level and the select of
+    ``wsovod_tpu/models/poolers.py:852-873``): arguments as
+    ``roi_pool_levels``, ``rows`` 1 to 3 -> ``[rows, B, N, P, P, c_take]``:
+    row 0 the ROI, row 1 the frame, row 2 the context of
+    ``roi_loop_pool(feats[level[b, n]][b], rois[b], P, scales[level[b, n]],
+    ratio)``, each a max that starts at 0, times the gate. The geometry is
+    made here in torch with each ROI's own level (``level_loop_geometry``).
+    No backward."""
+    global LOOP_LEVEL_LAUNCHES
+    feats = _check_levels(feats, rois, gate, level, scales, c_base, c_take,
+                          "roi_loop_pool_levels")
+    if rows not in (1, 2, 3):
+        raise ValueError(f"rows must be 1, 2 or 3, not {rows}")
+    if feats[0].device.type == "cpu":
+        return roi_loop_pool_levels_plain(feats, rois, gate, level, c_base, c_take, rows,
+                                          output_size, scales, context_ratio)
+    if feats[0].device.type != "cuda":
+        raise ValueError(f"roi_loop_pool_levels runs on CPU or CUDA tensors, not "
+                         f"{feats[0].device}")
+    for f in feats:
+        _check_kernel_args(f, c_base, c_take, "roi_loop_pool_levels")
+    b, n = rois.shape[:2]
+    geo = level_loop_geometry(rois, level, scales, [f.shape[1:3] for f in feats],
+                              context_ratio).contiguous()
+    level32 = _src32(level, len(feats))
+    g = gate.to(feats[0].dtype).contiguous()
+    out = torch.empty((rows, b, n, output_size, output_size, c_take), dtype=feats[0].dtype,
+                      device=feats[0].device)
+    _launch("roi_loop_pool_gated.cu", "wsovod_roi_loop_pool_levels", feats[0].dtype,
+            (geo, level32, g, out), (b, feats[0].shape[3], n, c_base, c_take, output_size, rows),
+            what="roi_loop_pool_levels", levels=feats)
+    LOOP_LEVEL_LAUNCHES += 1
+    return out

@@ -7,8 +7,10 @@ weight``, ``backbone.plain1.conv1.bias`` of VGG16,
 ``roi_heads.box_refinery.0.cls.projection.0.weight``,
 ``data_aware_head.datasets_feat.weight``,
 ``proposal_generator.rpn_head.conv.weight``,
-``roi_heads.object_miner.cls.weight``, ...), so the same ``state_dict``
-loader takes a reference WSOVOD checkpoint. An MRRP model's tree has the
+``roi_heads.object_miner.cls.weight``, the Swin FPN's
+``backbone.bottom_up.layers.0.blocks.1.attn.qkv.weight`` and
+``backbone.fpn_lateral2.weight``, ...), so the same ``state_dict`` loader
+takes a reference WSOVOD checkpoint. An MRRP model's tree has the
 same names: its branches share the stage's weights. The JAX package creates
 the object miner's parameters only when it initialises in training mode; a
 tree without them maps without them.
@@ -16,6 +18,7 @@ tree without them maps without them.
 
 from __future__ import annotations
 
+import re
 from typing import Any, Dict, Mapping
 
 import numpy as np
@@ -42,9 +45,64 @@ def _convnorm(out: Dict[str, np.ndarray], prefix: str, p: Mapping[str, Any]) -> 
         out[prefix + ".norm.running_var"] = bn["var"]
 
 
+def _dense(out: Dict[str, np.ndarray], prefix: str, p: Mapping[str, Any]) -> None:
+    out[prefix + ".weight"] = _fc(p["kernel"])
+    if "bias" in p:
+        out[prefix + ".bias"] = p["bias"]
+
+
+def _layer_norm(out: Dict[str, np.ndarray], prefix: str, p: Mapping[str, Any]) -> None:
+    out[prefix + ".weight"] = p["scale"]
+    out[prefix + ".bias"] = p["bias"]
+
+
+def _swin(out, tree: Mapping[str, Any], prefix: str) -> None:
+    """A ``SwinTransformer`` tree: ``patch_embed``/``patch_norm``,
+    ``stage{s}_block{j}``, ``merge{s}``, ``stage{s}_norm`` ->
+    ``patch_embed.{proj,norm}``, ``layers.{s-2}.blocks.{j}``,
+    ``layers.{s-2}.downsample``, ``norm{s-2}``."""
+    out[prefix + "patch_embed.proj.weight"] = _conv(tree["patch_embed"]["kernel"])
+    out[prefix + "patch_embed.proj.bias"] = tree["patch_embed"]["bias"]
+    if "patch_norm" in tree:
+        _layer_norm(out, prefix + "patch_embed.norm", tree["patch_norm"])
+    for key, p in tree.items():
+        m = re.fullmatch(r"stage(\d+)_block(\d+)", key)
+        if m:
+            bp = f"{prefix}layers.{int(m.group(1)) - 2}.blocks.{m.group(2)}."
+            _layer_norm(out, bp + "norm1", p["norm1"])
+            _layer_norm(out, bp + "norm2", p["norm2"])
+            _dense(out, bp + "attn.qkv", p["attn"]["qkv"])
+            _dense(out, bp + "attn.proj", p["attn"]["proj"])
+            out[bp + "attn.relative_position_bias_table"] = (
+                p["attn"]["relative_position_bias_table"])
+            _dense(out, bp + "mlp.fc1", p["mlp_fc1"])
+            _dense(out, bp + "mlp.fc2", p["mlp_fc2"])
+        m = re.fullmatch(r"merge(\d+)", key)
+        if m:
+            mp = f"{prefix}layers.{int(m.group(1)) - 2}.downsample."
+            _layer_norm(out, mp + "norm", p["norm"])
+            _dense(out, mp + "reduction", p["reduction"])
+        m = re.fullmatch(r"stage(\d+)_norm", key)
+        if m:
+            _layer_norm(out, f"{prefix}norm{int(m.group(1)) - 2}", p)
+
+
 def _backbone(out, tree: Mapping[str, Any], prefix: str) -> None:
-    """A WSR ResNet tree (``stem``, ``res{s}_{b}``) or a VGG16 tree
-    (``plain{k}``, named ``plain{k}.conv{i}`` in torch)."""
+    """A WSR ResNet tree (``stem``, ``res{s}_{b}``), a VGG16 tree
+    (``plain{k}``, named ``plain{k}.conv{i}`` in torch), a Swin tree or a
+    Swin FPN tree (``bottom_up`` and ``fpn_{lateral,output}_stage{s}``,
+    named ``fpn_{lateral,output}{s}``: stage s is level p{s})."""
+    if "patch_embed" in tree:
+        _swin(out, tree, prefix)
+        return
+    if "bottom_up" in tree:
+        _swin(out, tree["bottom_up"], prefix + "bottom_up.")
+        for key, p in tree.items():
+            m = re.fullmatch(r"fpn_(lateral|output)_stage(\d+)", key)
+            if m:
+                out[f"{prefix}fpn_{m.group(1)}{m.group(2)}.weight"] = _conv(p["kernel"])
+                out[f"{prefix}fpn_{m.group(1)}{m.group(2)}.bias"] = p["bias"]
+        return
     if "stem" in tree:
         for i in (1, 2, 3):
             _convnorm(out, f"{prefix}stem.conv{i}", tree["stem"][f"conv{i}"])
@@ -70,8 +128,8 @@ def _tensors(out: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
 
 
 def backbone_state_dict_from_jax(tree: Mapping[str, Any], prefix: str = "") -> Dict[str, torch.Tensor]:
-    """A ``WSRResNet`` or ``VGG16`` parameter tree -> its ``state_dict``
-    (names under ``prefix``)."""
+    """A ``WSRResNet``, ``VGG16``, ``SwinTransformer`` or ``SwinFPN``
+    parameter tree -> its ``state_dict`` (names under ``prefix``)."""
     out: Dict[str, np.ndarray] = {}
     _backbone(out, tree, prefix)
     return _tensors(out)

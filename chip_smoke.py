@@ -6,7 +6,7 @@
 Phases, in order; any failure exits nonzero before the last line is printed:
 
 1. Device and build: the card's name and power limit (``nvidia-smi``), TF32
-   off for matmuls and convolutions, the six CUDA kernels built from
+   off for matmuls and convolutions, the eight CUDA kernels built from
    ``wsovod_torch/kernels/csrc`` with ``nvcc`` for ``sm_90a`` (one ``nvcc``
    per source, started together).
 2. The gated ROIPool kernel against its plain PyTorch version at the plain
@@ -42,7 +42,15 @@ Phases, in order; any failure exits nonzero before the last line is printed:
    264, 256]`` to p5 ``[2, 22, 33, 256]``), 5024 ROIs per image from the
    same box mix with the edge rows, each on its level by d2's rule (every
    level gets some): bfloat16 and float32, the loop rows 1 and 3, bit for
-   bit; times and bounds.
+   bit; times and bounds. Then kernel 2.9, the TPU microbenchmarks' walks
+   of one map resident in the L2 (``wsovod_torch/scripts``): the row fold
+   (``row_fold.cu``) in float32, bfloat16 and int8 and the bin row walk
+   (``row_walk.cu``) in cases A-F at the JAX scripts' shapes (``[86, 136,
+   512]``), each result held bit for bit against its plain version, timed
+   with the scripts' lines (ms, Gelem/s or ns per row, the walk's GB/s, the
+   bound); each at a quarter of its pseudo-ROIs or ROIs takes at most 0.4
+   of its time at the full count, so the whole walk runs. Neither is on a
+   model path: their launch counts stay 0 in every slice.
 4. The plain slice: ``build_model`` on ``configs/COCO-Detection/
    WSOVOD_WSR_50_DC5_1x.yaml``; 5. the MRRP slice, the same on
    ``WSOVOD_MRRP_WSR_50_DC5_1x.yaml`` (three branches at test); then the
@@ -150,10 +158,15 @@ Phases, in order; any failure exits nonzero before the last line is printed:
    per ROI, have records of their own, as has the routed align; the
    windowed align's times ride in the align's record; each emission mode
    has its own record, the int8 and tile8 ones with no launches, since no
-   pooler path reaches them; so has each level-routed mode), and the result
-   line.
+   pooler path reaches them; so has each level-routed mode; the two 2.9
+   walks, with no launches and every dtype or case under ``cases``), and
+   the result line.
 
-It imports no JAX and nothing of ``wsovod_tpu``.
+Kernel times are CUDA-event means after a warm-up call, with a spin kernel
+holding the card while the host queues the calls (``wsovod_torch.scripts.
+cuda_ms``, which the 2.9 entry points share with this script, as they share
+the card line and the bound). It imports no JAX and nothing of
+``wsovod_tpu``.
 """
 
 from __future__ import annotations
@@ -162,13 +175,14 @@ import json
 import math
 import os
 import shutil
-import subprocess
 import sys
 import time
 
 import numpy as np
 
 REPO = os.path.dirname(os.path.abspath(__file__))
+sys.path.insert(0, REPO)
+from wsovod_torch.scripts import PEAK_BYTES_PER_S, bound, card_line, cuda_ms, timed  # noqa: E402
 CONFIGS = os.path.join(REPO, "configs", "COCO-Detection")
 PLAIN_CONFIG = os.path.join(CONFIGS, "WSOVOD_WSR_50_DC5_1x.yaml")
 MRRP_CONFIG = os.path.join(CONFIGS, "WSOVOD_MRRP_WSR_50_DC5_1x.yaml")
@@ -199,11 +213,7 @@ ALIGN_S = 2  # ROIAlign samples per bin axis: POOLER_SAMPLING_RATIO 0 means 2
 ALIGN_ITERS = 4  # iterations of each ROIAlignV2 train slice
 ALIGN_BWD_PLAIN_N = 1024  # ROIs per image where the align backward meets its plain version
 PROFILE_DIR = os.path.join(REPO, "profiles")  # git-ignored
-# NVIDIA H100 SXM data sheet: HBM rate, and the float32 rate outside the
-# tensor cores (the pool kernels compare in float32)
-PEAK_BYTES_PER_S = 3.35e12
-PEAK_F32_OPS_PER_S = 67e12
-PEAK_INT8_OPS_PER_S = 1979e12  # dense int8 tensor-core rate
+PEAK_INT8_OPS_PER_S = 1979e12  # NVIDIA H100 SXM data sheet: dense int8 tensor-core rate
 C_TAKE_LOOP_INT8 = 256  # the ROILoopPool's chunk with the int8 fc1, the JAX pooler's
 INT8_C_TILE = 256  # the int8 emissions' quantization tile in the emission phase
 # the Swin FPN's pooled levels p2-p5 at 688x1056 (PatchMerging pads odd sides)
@@ -248,38 +258,6 @@ def pool_inputs(rng, b=B, w=W, h=H):
     return rois, gate
 
 
-def card_line() -> str:
-    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         capture_output=True, text=True, check=True, timeout=60)
-    return out.stdout.strip().splitlines()[0]
-
-
-def cuda_ms(fn, reps: int, warmup: int = 1) -> float:
-    import torch
-
-    for _ in range(warmup):
-        fn()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
-
-
-def timed(fn):
-    """``(fn(), ms)`` of one call, by CUDA events."""
-    import torch
-
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    out = fn()
-    end.record()
-    torch.cuda.synchronize()
-    return out, start.elapsed_time(end)
-
-
 def bin_pixels(rp, region, hole, p, h_lim, w_lim):
     """Feature pixels each bin's max must read, ``[..., P, P]``: the bins of
     the rounded ``region (x1, y1, w, h)`` clipped to the map, less the strict
@@ -306,17 +284,6 @@ def hollow_set_pixels(rp, region, hole, p, h_lim, w_lim):
     oh = (hhi.minimum(hole[..., 3, None]) - hlo.maximum(hole[..., 1, None] + 1)).clamp(min=0).long()
     ow = (whi.minimum(hole[..., 2, None]) - wlo.maximum(hole[..., 0, None] + 1)).clamp(min=0).long()
     return bh[..., :, None] * (bw - ow)[..., None, :] + (bh - oh)[..., :, None] * bw[..., None, :]
-
-
-def bound(pixels: int, out_elems: int, in_bytes: int, out_bytes: int):
-    """Least time (ms) on the card for a pool call, and what sets it: the
-    bytes it must move (each input read once, each output written once) over
-    HBM's rate, against its operations (one compare per bin pixel and
-    channel, or the align's multiply-adds, one gate multiply per output)
-    over the float32 rate."""
-    t_bytes = (in_bytes + out_bytes) / PEAK_BYTES_PER_S * 1e3
-    t_ops = (pixels + out_elems) / PEAK_F32_OPS_PER_S * 1e3
-    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
 def near(got, want, rtol, atol=1e-5):
@@ -359,7 +326,7 @@ def phase_pool_kernel(torch, dev, rp):
     pixels = int(bin_pixels(rp, region, None, 7, FEAT[1], FEAT[2]).sum()) * C_TAKE
     out_elems = B * N_ROIS * 49 * C_TAKE
     in_bytes = B * FEAT[1] * FEAT[2] * C_TAKE * 2 + rois_t.numel() * 4 + gate_t.numel() * 4
-    bound_ms, bound_by = bound(pixels, out_elems, in_bytes, out_elems * 2)
+    bound_ms, bound_by = bound(pixels + out_elems, in_bytes, out_elems * 2)
     log(f"roi_pool_gated bf16 {list(FEAT)} x {N_ROIS} ROIs, one 512-channel chunk: kernel "
         f"{ms:.3f} ms, plain {plain_ms:.3f} ms, bound {bound_ms:.3f} ms ({bound_by}: "
         f"{(in_bytes + out_elems * 2) / 1e6:.1f} MB, {pixels / 1e9:.3f} G compares)")
@@ -378,7 +345,7 @@ def loop_bound(torch, rp, rois_t, src_t, rows, esize=2):
     out_elems = rows * B * N_ROIS * 49 * C_TAKE
     in_bytes = (copies * FEAT[1] * FEAT[2] * C_TAKE * esize
                 + rois_t.numel() * 4 + 2 * src_t.numel() * 4)  # + rois, gate and src
-    bound_ms, bound_by = bound(pixels, out_elems, in_bytes, out_elems * esize)
+    bound_ms, bound_by = bound(pixels + out_elems, in_bytes, out_elems * esize)
     return bound_ms, bound_by, in_bytes + out_elems * esize, pixels
 
 
@@ -476,7 +443,7 @@ def phase_routed_kernel(torch, dev, rp):
     out_elems = B * N_ROIS * 49 * C_TAKE
     in_bytes = (copies * VGG_FEAT[1] * VGG_FEAT[2] * C_TAKE * 2 + rois_t.numel() * 4
                 + gate_t.numel() * 4 + src_t.numel() * 4)
-    bound_ms, bound_by = bound(pixels, out_elems, in_bytes, out_elems * 2)
+    bound_ms, bound_by = bound(pixels + out_elems, in_bytes, out_elems * 2)
     log(f"roi_pool_gated routed bf16 {[N_BRANCH * B] + list(VGG_FEAT[1:])} x {N_ROIS} ROIs, one "
         f"512-channel chunk: kernel {times['ms']:.3f} ms, plain {times['plain_ms']:.3f} ms, bound "
         f"{bound_ms:.3f} ms ({bound_by}: {(in_bytes + out_elems * 2) / 1e6:.1f} MB, "
@@ -557,7 +524,7 @@ def phase_level_kernels(torch, dev, rp):
             for reg, hole in parts:
                 pixels += int(bin_pixels(rp, reg[on], hole, 7, sh[1], sh[2]).sum()) * c
         out_elems = B * N_ROIS * 49 * c
-        bound_ms, bound_by = bound(pixels, out_elems, in_bytes, out_elems * 2)
+        bound_ms, bound_by = bound(pixels + out_elems, in_bytes, out_elems * 2)
         r = records[name]
         r.update(bound_ms=bound_ms, bound_by=bound_by, rois_per_level=per_level)
         log(f"{name} bf16 levels {[list(sh) for sh in SWIN_LEVELS]} x {N_ROIS} ROIs, one "
@@ -679,7 +646,7 @@ def phase_emission_kernels(torch, dev, rp, ra):
             in_bytes = pool_bytes(B, FEAT[1:3], c_take, rois_t)
         out_bytes = (out_elems * 2 + B * N_ROIS * 4 if name.endswith("maxabs")
                      else out_elems + B * N_ROIS * 4 * (1 if name.endswith("tile8") else n_ct))
-        bound_ms, bound_by = bound(work, out_elems, in_bytes, out_bytes)
+        bound_ms, bound_by = bound(work + out_elems, in_bytes, out_bytes)
         log(f"{name} == plain, bfloat16 and float32 ({', '.join(w for w, _ in checks)}; float32 "
             f"{n} ROIs per image for the first): exact; "
             f"bf16 one {c_take}-channel chunk{f', c_tile {ct}' if 'int8' in name else ''}: kernel "
@@ -688,6 +655,37 @@ def phase_emission_kernels(torch, dev, rp, ra):
             f"operations)")
         records[name] = {"max_abs_err": max_err, "bound_ms": bound_ms, "bound_by": bound_by,
                          "launches": 0, **times}
+    return records
+
+
+def phase_walk_kernels(torch, dev, fold, walk):
+    """Kernel 2.9 (see the module docstring): ``fold.measure`` in every
+    dtype and ``walk.measure`` in every case, each holding the kernel's
+    result bit for bit against its plain version; each quarter-count time at
+    most 0.4 of the full count's. Returns a record per kernel with the
+    bfloat16 fold's and case A's numbers, every dtype or case under
+    ``cases``."""
+    cases = {"row_fold": {}, "row_walk": {}}
+    for name, dtype in fold.DTYPES:
+        cases["row_fold"][name.strip()] = rec = fold.measure(fold.make_map(dtype, dev))
+        log(f"row_fold {fold.line(name, rec)}")
+    feats, hlo, x0 = walk.make_inputs(dev)
+    for name, dt, win in walk.CASES:
+        cases["row_walk"][name.strip()] = rec = walk.measure(feats[dt], hlo, x0[name], win)
+        log(f"row_walk {walk.line(name, rec)}")
+    records = {}
+    for kernel, top in (("row_fold", "bf16"), ("row_walk", "A bf16 fullrow")):
+        slow = {k: r["quarter_ratio"] for k, r in cases[kernel].items() if r["quarter_ratio"] > 0.4}
+        if slow:
+            raise AssertionError(f"{kernel}: a quarter of the walk took more than 0.4 of the "
+                                 f"whole: {slow}")
+        r = cases[kernel][top]
+        records[kernel] = {"launches": 0, "max_abs_err": max(c["max_abs_err"] for c in
+                                                             cases[kernel].values()),
+                           **{k: r[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")},
+                           "cases": cases[kernel]}
+    del feats, hlo, x0
+    torch.cuda.empty_cache()
     return records
 
 
@@ -807,7 +805,7 @@ def phase_align_kernel(torch, dev, ra):
                     + (0 if s_t is None else s_t.numel() * 4))
         terms = align_terms(ra, rois_t, FEAT[1], FEAT[2])
         ops = 2 * terms * C_TAKE + 2 * out_elems
-        bound_ms, bound_by = bound(ops - out_elems, out_elems, in_bytes, out_elems * 2)
+        bound_ms, bound_by = bound(ops, in_bytes, out_elems * 2)
         log(f"{name} bf16 {[copies] + list(FEAT[1:])} x {N_ROIS} ROIs, one 512-channel chunk, "
             f"s={ALIGN_S}: kernel {times['ms']:.3f} ms (windowed {times['window_ms']:.3f} ms), "
             f"plain {times['plain_ms']:.3f} ms (windowed {times['window_plain_ms']:.3f} ms), bound "
@@ -894,7 +892,7 @@ def phase_align_bwd_kernel(torch, dev, ra):
     chunk_bytes = TB * h * w * C_TAKE * 2
     in_bytes = g_elems * 2 + rois_t.numel() * 4 + gate_t.numel() * 4
     ops = 2 * terms * C_TAKE + g_elems
-    bound_ms, bound_by = bound(ops - g_elems, g_elems, in_bytes, chunk_bytes)
+    bound_ms, bound_by = bound(ops, in_bytes, chunk_bytes)
     log(f"roi_align_gated_bwd bf16 {list(TRAIN_FEAT)} x {N_ROIS} ROIs, one 512-channel chunk, "
         f"feature cotangent: kernel {times['ms']:.3f} ms at {N_ROIS} ROIs per image "
         f"({times['ms_at_plain_n']:.3f} ms at {n}; routed on {list(TRAIN_FEAT_MRRP)} "
@@ -1055,7 +1053,8 @@ FWD_COUNTERS = {"pool": ("rp", "LAUNCHES"), "loop": ("rp", "LOOP_LAUNCHES"),
 BWD_COUNTERS = {"pool": ("rp", "BWD_LAUNCHES"), "loop": ("rp", "LOOP_BWD_LAUNCHES"),
                 "align": ("ra", "BWD_LAUNCHES")}
 OFF_PATH_COUNTERS = (("rp", "INT8_LAUNCHES"), ("rp", "TILE8_LAUNCHES"),
-                     ("rp", "LOOP_INT8_LAUNCHES"), ("ra", "INT8_LAUNCHES"))
+                     ("rp", "LOOP_INT8_LAUNCHES"), ("ra", "INT8_LAUNCHES"),
+                     ("fold", "LAUNCHES"), ("walk", "LAUNCHES"))
 ALL_COUNTERS = tuple(dict.fromkeys(tuple(FWD_COUNTERS.values()) + tuple(BWD_COUNTERS.values())
                                    + OFF_PATH_COUNTERS))
 
@@ -1385,7 +1384,7 @@ def phase_bwd_kernel(torch, dev, rp):
     out_elems = TB * N_ROIS * 49 * C_TAKE
     chunk_elems = TB * TRAIN_FEAT[1] * TRAIN_FEAT[2] * C_TAKE
     in_bytes = out_elems * 2 + chunk_elems * 2 + rois_t.numel() * 4 + gate_t.numel() * 4
-    bound_ms, bound_by = bound(2 * pixels, out_elems, in_bytes, chunk_elems * 4)
+    bound_ms, bound_by = bound(2 * pixels + out_elems, in_bytes, chunk_elems * 4)
     log(f"roi_pool_gated_bwd bf16 {list(TRAIN_FEAT)} x {N_ROIS} ROIs, one 512-channel chunk, "
         f"feature cotangent: kernel {times['ms']:.3f} ms, plain {times['plain_ms']:.3f} ms, "
         f"bound {bound_ms:.3f} ms ({bound_by}: {(in_bytes + chunk_elems * 4) / 1e6:.1f} MB, "
@@ -1493,7 +1492,7 @@ def loop_bwd_bound(torch, rp, rois_t, gate_t, src_t):
     g_elems = 3 * TB * N_ROIS * 49 * C_TAKE
     chunk_elems = copies * h * w * C_TAKE
     in_bytes = g_elems * 2 + chunk_elems * 2 + rois_t.numel() * 4 + 2 * gate_t.numel() * 4
-    bound_ms, bound_by = bound(2 * pixels, g_elems, in_bytes, chunk_elems * 4)
+    bound_ms, bound_by = bound(2 * pixels + g_elems, in_bytes, chunk_elems * 4)
     return bound_ms, bound_by, in_bytes + chunk_elems * 4, 2 * pixels + g_elems
 
 
@@ -1569,7 +1568,7 @@ def phase_routed_bwd_kernel(torch, dev, rp):
     chunk_elems = copies * h * w * C_TAKE
     in_bytes = (g_elems * 2 + chunk_elems * 2 + rois_t.numel() * 4 + 2 * gate_t.numel() * 4
                 + src_t.numel() * 4)
-    bound_ms, bound_by = bound(2 * pixels, g_elems, in_bytes, chunk_elems * 4)
+    bound_ms, bound_by = bound(2 * pixels + g_elems, in_bytes, chunk_elems * 4)
     log(f"roi_pool_gated_bwd routed bf16 {list(shape)} x {N_ROIS} ROIs, one 512-channel chunk, "
         f"feature cotangent: kernel {times['ms']:.3f} ms at {N_ROIS} ROIs per image, "
         f"{times['ms_at_plain_n']:.3f} ms at {n}; plain {times['plain_ms']:.3f} ms at {n}; bound "
@@ -1868,12 +1867,13 @@ def main() -> int:
         print("chip_smoke: no CUDA device; this script measures the port on a GPU only",
               file=sys.stderr)
         return 2
-    sys.path.insert(0, REPO)
     from wsovod_torch import kernels
     from wsovod_torch.ops import roi_align as ra
     from wsovod_torch.ops import roi_pool as rp
+    from wsovod_torch.scripts import bench_i8walk as walk
+    from wsovod_torch.scripts import bench_vpu_pack as fold
 
-    mods = {"rp": rp, "ra": ra}
+    mods = {"rp": rp, "ra": ra, "fold": fold, "walk": walk}
 
     # ---- 1. device and build
     dev = torch.device("cuda", 0)
@@ -1885,7 +1885,8 @@ def main() -> int:
     log(f"allow_tf32: matmul {torch.backends.cuda.matmul.allow_tf32}, "
         f"cudnn {torch.backends.cudnn.allow_tf32}")
     sources = ["roi_pool_gated.cu", "roi_loop_pool_gated.cu", "roi_pool_gated_bwd.cu",
-               "roi_loop_pool_gated_bwd.cu", "roi_align_gated.cu", "roi_align_gated_bwd.cu"]
+               "roi_loop_pool_gated_bwd.cu", "roi_align_gated.cu", "roi_align_gated_bwd.cu",
+               "row_fold.cu", "row_walk.cu"]
     t0 = time.perf_counter()
     libs = kernels.build_all(sources)
     for src in sources:
@@ -1903,7 +1904,8 @@ def main() -> int:
                "roi_pool_gated_routed": phase_routed_kernel(torch, dev, rp),
                **phase_align_kernel(torch, dev, ra),
                **phase_emission_kernels(torch, dev, rp, ra),
-               **phase_level_kernels(torch, dev, rp)}
+               **phase_level_kernels(torch, dev, rp),
+               **phase_walk_kernels(torch, dev, fold, walk)}
     int8_gemms = phase_int8_gemms(torch, dev)
 
     # ---- 4., 5. the inference slices
@@ -2024,9 +2026,12 @@ def main() -> int:
                             "wsovod_tpu/ops/pallas/roi_pool_kernel.py:281"),
         "roi_loop_pool_levels": ("wsovod_torch/kernels/csrc/roi_loop_pool_gated.cu",
                                  "wsovod_tpu/ops/pallas/roi_pool_kernel.py:333"),
+        # 2.9: the TPU microbenchmarks' walks, on no model path
+        "row_fold": ("wsovod_torch/kernels/csrc/row_fold.cu", "scripts/bench_vpu_pack.py:51"),
+        "row_walk": ("wsovod_torch/kernels/csrc/row_walk.cu", "scripts/bench_i8walk.py:80"),
     }
     extra = ("n_rois", "plain_n_rois", "ms_at_plain_n", "window_ms", "window_plain_ms", "routed_ms",
-             "routed_plain_ms", "rows3_ms", "rows3_plain_ms", "rois_per_level")
+             "routed_plain_ms", "rows3_ms", "rows3_plain_ms", "rois_per_level", "cases")
     log("int8 GEMMs (torch._int_mm, not a kernel of the port): "
         + json.dumps({k: round(v, 3) for k, v in int8_gemms.items()}))
     log(card)
@@ -2036,7 +2041,7 @@ def main() -> int:
         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
         # no single PyTorch call computes a gated RoIPool, ROILoopPool, a
         # gated, routed ROIAlign or their backward (and the card's host has
-        # no torchvision)
+        # no torchvision), nor walks windows of one resident map
         "library_ms": None,
         "launches_by_path": by_path[name],
         **{k: r[k] for k in extra if k in r},

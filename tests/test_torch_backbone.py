@@ -27,16 +27,14 @@ def test_backbone_and_layers_match_flax():
     """R18 DC5 (the golden config's backbone), a narrow R50 DC5 and R18
     without dilation; ``max_pool_2x2`` at both strides; ``ConvNorm`` dilated,
     strided and 1x1; a tiny Swin alone and under its FPN."""
-    for kw in (
+    _check_wsr_resnet((
         dict(depth=18),
         dict(depth=50, stem_out_channels=16, res2_out_channels=32, width_per_group=8),
         dict(depth=18, res5_dilation=1),  # res3 downsamples instead
-    ):
-        _check_wsr_resnet(kw)
+    ))
     for stride in (1, 2):
         _check_max_pool_2x2_zero_pad(stride)
-    for k, dilation, stride in ((3, 2, 1), (3, 1, 2), (1, 1, 1)):
-        _check_convnorm(k, dilation, stride)
+    _check_convnorm(((3, 2, 1), (3, 1, 2), (1, 1, 1)))
     _check_swin()
 
 
@@ -71,21 +69,25 @@ def _check_swin():
             np.testing.assert_allclose(got[k].numpy(), np.asarray(v), **TOL, err_msg=f"{name} {k}")
 
 
-def _check_wsr_resnet(kw):
+def _check_wsr_resnet(kws):
+    """``WSRResNet`` for each of ``kws`` against the flax module, the three
+    forwards in one compiled program."""
     rng = np.random.RandomState(0)
     x = rng.uniform(-1, 1, (2, 64, 48, 3)).astype(np.float32)
-    jm = JaxWSRResNet(**kw)
-    params = random_params(jax.eval_shape(lambda: jm.init(jax.random.PRNGKey(0), jnp.asarray(x))))
-    params = params["params"]
-    want = jax.jit(lambda p, v: jm.apply({"params": p}, v))(params, jnp.asarray(x))["res5"]
-
-    tm = WSRResNet(**kw)
-    tm.load_state_dict(backbone_state_dict_from_jax(params), strict=True)
-    with torch.inference_mode():
-        got = tm(torch.from_numpy(x))["res5"]
-    assert got.shape == want.shape and got.is_contiguous()
-    assert tm.output_strides() == jm.output_strides()
-    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL, err_msg=str(kw))
+    jms = [JaxWSRResNet(**kw) for kw in kws]
+    params = [random_params(jax.eval_shape(lambda: jm.init(jax.random.PRNGKey(0),
+                                                           jnp.asarray(x))))["params"]
+              for jm in jms]
+    wants = jax.jit(lambda ps, v: [jm.apply({"params": p}, v)["res5"] for jm, p in zip(jms, ps)])(
+        params, jnp.asarray(x))
+    for kw, jm, p, want in zip(kws, jms, params, wants):
+        tm = WSRResNet(**kw)
+        tm.load_state_dict(backbone_state_dict_from_jax(p), strict=True)
+        with torch.inference_mode():
+            got = tm(torch.from_numpy(x))["res5"]
+        assert got.shape == want.shape and got.is_contiguous()
+        assert tm.output_strides() == jm.output_strides()
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL, err_msg=str(kw))
 
 
 def _check_max_pool_2x2_zero_pad(stride):
@@ -97,16 +99,22 @@ def _check_max_pool_2x2_zero_pad(stride):
     np.testing.assert_array_equal(got.numpy(), want, err_msg=f"stride {stride}")
 
 
-def _check_convnorm(k, dilation, stride):
+def _check_convnorm(cases):
+    """``ConvNorm`` for each ``(k, dilation, stride)`` of ``cases``, the
+    flax modules applied in one compiled program."""
     rng = np.random.RandomState(2)
     x = rng.randn(2, 11, 13, 8).astype(np.float32)
-    jm = jlayers.ConvNorm(6, k, stride=stride, dilation=dilation)
-    params = random_params(jax.eval_shape(lambda: jm.init(jax.random.PRNGKey(1), jnp.asarray(x))))
-    params = params["params"]
-    want = np.asarray(jm.apply({"params": params}, jnp.asarray(x)))
-    tm = tlayers.ConvNorm(8, 6, k, stride=stride, dilation=dilation)
-    sd = backbone_state_dict_from_jax({"stem": {f"conv{i}": params for i in (1, 2, 3)}})
-    tm.load_state_dict({k_[len("stem.conv1."):]: v for k_, v in sd.items() if k_.startswith("stem.conv1.")})
-    with torch.inference_mode():
-        got = tm(torch.from_numpy(x).permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
-    np.testing.assert_allclose(got.numpy(), want, **TOL, err_msg=f"{k} {dilation} {stride}")
+    jms = [jlayers.ConvNorm(6, k, stride=stride, dilation=dilation) for k, dilation, stride in cases]
+    params = [random_params(jax.eval_shape(lambda: jm.init(jax.random.PRNGKey(1), jnp.asarray(x))))
+              ["params"] for jm in jms]
+    wants = jax.jit(lambda ps, v: [jm.apply({"params": p}, v) for jm, p in zip(jms, ps)])(
+        params, jnp.asarray(x))
+    for (k, dilation, stride), p, want in zip(cases, params, wants):
+        tm = tlayers.ConvNorm(8, 6, k, stride=stride, dilation=dilation)
+        sd = backbone_state_dict_from_jax({"stem": {f"conv{i}": p for i in (1, 2, 3)}})
+        tm.load_state_dict({k_[len("stem.conv1."):]: v for k_, v in sd.items()
+                            if k_.startswith("stem.conv1.")})
+        with torch.inference_mode():
+            got = tm(torch.from_numpy(x).permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL,
+                                   err_msg=f"{k} {dilation} {stride}")

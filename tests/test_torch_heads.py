@@ -127,20 +127,27 @@ def _check_int8_rpn_conv():
     kernel = (rng.randn(3, 3, 16, 24) * 0.1).astype(np.float32)
     bias = (rng.randn(24) * 0.1).astype(np.float32)
     weight = _t(kernel.transpose(3, 2, 0, 1))  # [F, C, 3, 3]
-    conv = jax.jit(jax_conv_int8, static_argnames="dilation")
-    for dtype, jdt in ((torch.float32, jnp.float32), (torch.bfloat16, jnp.bfloat16)):
-        for d in (1, 2):
-            want = np.asarray(conv(jnp.asarray(x, jdt), jnp.asarray(kernel), None, dilation=d)
-                              .astype(jnp.float32))
-            got = conv3x3_shifted_int8(_t(x).to(dtype), weight, None, dilation=d)
-            assert got.dtype == dtype and got.shape == (2, 6, 9, 24)
-            np.testing.assert_array_equal(got.float().numpy(), want, err_msg=f"{dtype} {d}")
-            want = np.asarray(conv(jnp.asarray(x, jdt), jnp.asarray(kernel), jnp.asarray(bias),
-                                   dilation=d).astype(jnp.float32))
-            got = conv3x3_shifted_int8(_t(x).to(dtype), weight, _t(bias), dilation=d).float()
-            tol = (dict(rtol=1e-6, atol=1e-7) if dtype == torch.float32
-                   else dict(rtol=2.0 ** -8, atol=0))
-            np.testing.assert_allclose(got.numpy(), want, **tol, err_msg=f"{dtype} {d} bias")
+    cases = [(dtype, jdt, d) for dtype, jdt in ((torch.float32, jnp.float32),
+                                                (torch.bfloat16, jnp.bfloat16)) for d in (1, 2)]
+
+    def every_case(xs, kernel, bias):  # one compiled program for all of them
+        return [[jax_conv_int8(xc, kernel, b, dilation=d) for b in (None, bias)]
+                for xc, (_, _, d) in zip(xs, cases)]
+
+    # the input arrives cast and the results leave in their dtype: a cast
+    # inside the program would let XLA skip a bfloat16 rounding
+    wants = jax.jit(every_case)([jnp.asarray(x, jdt) for _, jdt, _ in cases],
+                                jnp.asarray(kernel), jnp.asarray(bias))
+    for (dtype, _, d), (want, want_bias) in zip(cases, wants):
+        got = conv3x3_shifted_int8(_t(x).to(dtype), weight, None, dilation=d)
+        assert got.dtype == dtype and got.shape == (2, 6, 9, 24)
+        np.testing.assert_array_equal(got.float().numpy(), np.asarray(want.astype(jnp.float32)),
+                                      err_msg=f"{dtype} {d}")
+        got = conv3x3_shifted_int8(_t(x).to(dtype), weight, _t(bias), dilation=d).float()
+        tol = (dict(rtol=1e-6, atol=1e-7) if dtype == torch.float32
+               else dict(rtol=2.0 ** -8, atol=0))
+        np.testing.assert_allclose(got.numpy(), np.asarray(want_bias.astype(jnp.float32)), **tol,
+                                   err_msg=f"{dtype} {d} bias")
     head = StandardRPNHead(16, 3, conv_quant="int8")  # its conv is 16 -> 16 channels
     assert sorted(head.conv.state_dict()) == ["bias", "weight"]
     kernel, bias = kernel[..., :16], bias[:16]
@@ -250,8 +257,7 @@ def test_refinery_and_fast_rcnn_inference_match_jax():
     """Two refinement heads with ``predict_probs_K`` / ``predict_boxes_K``,
     then ``fast_rcnn_inference`` at two score thresholds."""
     _check_refinery()
-    for thresh in (1e-5, 0.02):
-        _check_fast_rcnn_inference(thresh)
+    _check_fast_rcnn_inference((1e-5, 0.02))
 
 
 def _check_refinery():
@@ -263,12 +269,18 @@ def _check_refinery():
     jms = [jmil.InstanceRefinementOutputLayers(num_classes=5, refine_k=k, refine_reg=True,
                                                weight_dim=16) for k in range(2)]
     tms = [tmil.InstanceRefinementOutputLayers(32, refine_reg=True, weight_dim=16) for _ in range(2)]
-    s_j, d_j, s_t, d_t = [], [], [], []
-    for k, (jm, tm) in enumerate(zip(jms, tms)):
-        params = jax.jit(jm.init)(jax.random.PRNGKey(3 + k), x, embeddings=emb)["params"]
-        s, d = jax.jit(jm.apply)({"params": params}, x, embeddings=emb)
-        s_j.append(s)
-        d_j.append(d)
+    w = (10.0, 10.0, 5.0, 5.0)
+
+    def refine(x, emb, props):  # one compiled program: both heads, then the K merge
+        params = [jm.init(jax.random.PRNGKey(3 + k), x, embeddings=emb)["params"]
+                  for k, jm in enumerate(jms)]
+        s_j, d_j = zip(*(jm.apply({"params": p}, x, embeddings=emb) for jm, p in zip(jms, params)))
+        return (params, s_j, d_j, jmil.predict_probs_K(list(s_j)),
+                jmil.predict_boxes_K(list(d_j), props, w))
+
+    all_params, s_j, d_j, probs_k, boxes_k = jax.jit(refine)(x, emb, props)
+    s_t, d_t = [], []
+    for params, s, d, tm in zip(all_params, s_j, d_j, tms):
         sd = {f"cls.projection.0.{k_}": v for k_, v in _dense(params["cls"]["proj1"]).items()}
         sd.update({f"cls.projection.2.{k_}": v for k_, v in _dense(params["cls"]["proj2"]).items()})
         sd.update({f"bbox_pred.{k_}": v for k_, v in _dense(params["bbox_pred"]).items()})
@@ -279,15 +291,12 @@ def _check_refinery():
         np.testing.assert_allclose(d2.numpy(), np.asarray(d), **TOL)
         s_t.append(s2)
         d_t.append(d2)
-    w = (10.0, 10.0, 5.0, 5.0)
-    np.testing.assert_allclose(tmil.predict_probs_K(s_t).numpy(),
-                               np.asarray(jax.jit(jmil.predict_probs_K)(s_j)), **TOL)
+    np.testing.assert_allclose(tmil.predict_probs_K(s_t).numpy(), np.asarray(probs_k), **TOL)
     np.testing.assert_allclose(tmil.predict_boxes_K(d_t, _t(props), w).numpy(),
-                               np.asarray(jax.jit(lambda d, p: jmil.predict_boxes_K(d, p, w))(d_j, props)),
-                               rtol=1e-5, atol=1e-4)
+                               np.asarray(boxes_k), rtol=1e-5, atol=1e-4)
 
 
-def _check_fast_rcnn_inference(thresh):
+def _check_fast_rcnn_inference(threshs):
     rng = np.random.RandomState(4)
     b, p, c = 2, 60, 6
     xy = rng.uniform(-10, 80, (b, p, 2))
@@ -297,13 +306,15 @@ def _check_fast_rcnn_inference(thresh):
     valid = rng.rand(b, p) > 0.2
     boxes[0, 7, 2] = np.inf  # non-finite rows never enter
     sizes = np.array([[90, 100], [70, 80]], np.int32)
-    kw = dict(score_thresh=thresh, nms_thresh=0.3, topk_per_image=25, per_class_topk=16)
-    j = jax.jit(lambda *a: jax_frcnn(*a, **kw))(boxes, probs, valid, sizes)
-    t = fast_rcnn_inference_batched(_t(boxes), _t(probs), torch.from_numpy(valid),
-                                    torch.from_numpy(sizes), **kw)
-    v = np.asarray(j.valid)
-    np.testing.assert_array_equal(t.valid.numpy(), v)
-    np.testing.assert_array_equal(t.classes.numpy()[v], np.asarray(j.classes)[v])
-    np.testing.assert_array_equal(t.pred_inds.numpy()[v], np.asarray(j.pred_inds)[v])
-    np.testing.assert_allclose(t.scores.numpy()[v], np.asarray(j.scores)[v], **TOL)
-    np.testing.assert_allclose(t.boxes.numpy()[v], np.asarray(j.boxes)[v], **TOL)
+    kws = [dict(score_thresh=thresh, nms_thresh=0.3, topk_per_image=25, per_class_topk=16)
+           for thresh in threshs]
+    wants = jax.jit(lambda *a: [jax_frcnn(*a, **kw) for kw in kws])(boxes, probs, valid, sizes)
+    for kw, j in zip(kws, wants):  # every threshold in one compiled program
+        t = fast_rcnn_inference_batched(_t(boxes), _t(probs), torch.from_numpy(valid),
+                                        torch.from_numpy(sizes), **kw)
+        v = np.asarray(j.valid)
+        np.testing.assert_array_equal(t.valid.numpy(), v)
+        np.testing.assert_array_equal(t.classes.numpy()[v], np.asarray(j.classes)[v])
+        np.testing.assert_array_equal(t.pred_inds.numpy()[v], np.asarray(j.pred_inds)[v])
+        np.testing.assert_allclose(t.scores.numpy()[v], np.asarray(j.scores)[v], **TOL)
+        np.testing.assert_allclose(t.boxes.numpy()[v], np.asarray(j.boxes)[v], **TOL)

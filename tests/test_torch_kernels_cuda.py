@@ -52,7 +52,9 @@ def test_kernel_equals_plain(cuda):
     gated ROIAlign and its backward. The emission modes (maxabs, int8,
     tile8; the align's int8) bit-equal to their plain versions, payloads and
     scales, one launch counted per call. The level-routed ROIPool and
-    ROILoopPool (kernel 2.5) bit-equal to their plain versions."""
+    ROILoopPool (kernel 2.5) bit-equal to their plain versions. The 2.9
+    walks (row fold, bin row walk) bit-equal to their plain versions."""
+    _check_walk_kernels(cuda)
     _check_level_kernels(cuda)
     _check_emission_kernels(cuda)
     _check_align_kernels(cuda)
@@ -76,6 +78,46 @@ def test_kernel_equals_plain(cuda):
     feat, rois, gate = _inputs(cuda, torch.bfloat16)
     with pytest.raises(ValueError):
         port.roi_pool_gated(feat.transpose(1, 2), rois, gate, 0, 64)
+
+
+def _check_walk_kernels(cuda):
+    """Kernel 2.9 at narrow shapes: the row fold in float32, bfloat16 and
+    int8 (an int8 window column of all -128 folds to -127) with the default
+    and other counts, and the bin row walk in cases A-F (an int8 column of
+    all -128 widens to -128), bit-equal to their plain versions, one launch
+    counted per call; float16 and non-contiguous maps are refused."""
+    from wsovod_torch.scripts import bench_i8walk as walk
+    from wsovod_torch.scripts import bench_vpu_pack as fold
+
+    for dtype in (torch.float32, torch.bfloat16, torch.int8):
+        feat = fold.make_map(dtype, cuda, seed=1, shape=(30, 72, 64))
+        if dtype == torch.int8:
+            feat[:, int(fold.origins(fold.NROI, 30, 72, fold.ROWS, fold.WIN)[1][-1]) + 3] = -128
+        for kw in ({"n_roi": 5, "rows": 7, "win": 16, "steps": 3}, {}):
+            before = fold.LAUNCHES
+            got = fold.row_fold(feat, **kw)
+            torch.cuda.synchronize()
+            assert fold.LAUNCHES == before + 1
+            assert torch.equal(got, fold.row_fold_plain(feat, **kw)), (dtype, kw)
+        if dtype == torch.int8:  # the default counts' last window holds the -128 column
+            assert (got[:, 3] == -127).all()
+    with pytest.raises(TypeError):
+        fold.row_fold(fold.make_map(torch.float16, cuda, shape=(30, 72, 64)))
+    with pytest.raises(ValueError):
+        fold.row_fold(feat.repeat(1, 1, 2)[..., :64])  # not contiguous
+
+    feats, hlo, x0 = walk.make_inputs(cuda, h=12, w=104, c=64, nb=2)
+    feats["int8"][0, :, 3] = -128
+    for name, dt, win in walk.CASES:
+        before = walk.LAUNCHES
+        got = walk.row_walk(feats[dt], hlo, x0[name], win)
+        torch.cuda.synchronize()
+        assert walk.LAUNCHES == before + 1
+        assert torch.equal(got, walk.row_walk_plain(feats[dt], hlo, x0[name], win)), name
+    with pytest.raises(TypeError):
+        walk.row_walk(feats["bf16"].half(), hlo, x0["C bf16 win48  "], 48)
+    with pytest.raises(ValueError):
+        walk.row_walk(feats["bf16"].repeat(1, 1, 1, 2)[..., :64], hlo, x0["C bf16 win48  "], 48)
 
 
 def _check_level_kernels(cuda):

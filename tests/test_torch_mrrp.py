@@ -61,7 +61,7 @@ import torch
 
 from torch_port_common import (
     LEVEL_SCALES, MRRP_VGG_YAML, MRRP_YAML, VGG_YAML, check_int8_model, clip_to_image, embeddings,
-    jax_level_pool, jax_pallas_per_level, jax_pool_emission, jax_reference, jax_stages,
+    jax_level_pool, jax_pallas_per_level, jax_pool_emissions, jax_reference, jax_stages,
     level_pool_inputs, make_batch, np_quant_scale, np_quantize_tiles, port_levels, random_params,
     routed_pool_inputs, tiny_cfg, torch_model_from_jax,
 )
@@ -185,13 +185,14 @@ def _check_loop_and_routed_emissions():
     img_w, img_h = feat.shape[2] / scale, feat.shape[1] / scale
     rois_c = clip_to_image(rois, img_w, img_h)
     f, r, g, s = _t(feat), _t(rois_c), _t(gate), _t(src)
-    want, part = jax_pool_emission(feat, rois_c, gate, "maxabs", 128, src, loop=True)
+    (want, part), (want_q, want_s), routed = jax_pool_emissions(
+        feat, rois_c, gate, [("maxabs", True, True), ("int8", True, True), ("int8", False, True)],
+        128, src)
     got, m = roi_loop_pool_gated_maxabs(f, r, g, s, 0, 256, 3, 3, scale, 1.8)
     np.testing.assert_array_equal(got.numpy(), want)
     np.testing.assert_array_equal(m.numpy(), part.max(axis=(2, 4)))  # [3, B, n_ct, N, lanes]
     got1, m1 = roi_loop_pool_gated_maxabs(f, r, g, s, 0, 256, 1, 3, scale, 1.8)
     assert torch.equal(got1, got[:1]) and torch.equal(m1, m[:1])
-    want_q, want_s = jax_pool_emission(feat, rois_c, gate, "int8", 128, src, loop=True)
     got_q, got_s = roi_loop_pool_gated_int8(f, r, g, s, 0, 256, 128, 3, 3, scale, 1.8)
     assert got_q.dtype == torch.int8 and got_s.shape == (3, 2, 2, 16)
     np.testing.assert_array_equal(got_q.numpy(), want_q)
@@ -201,7 +202,7 @@ def _check_loop_and_routed_emissions():
     # the routed ROIPool (a per-ROI source copy of the branch-major concat):
     # int8 against the TPU kernel; its maxabs, whose payload is the routed
     # gated pool's, against the jnp reference below
-    want_q, want_s = jax_pool_emission(feat, rois_c, gate, "int8", 128, src)
+    want_q, want_s = routed
     got_q, got_s = roi_pool_gated_int8(f, r, g, 0, 256, 128, 3, scale, s)
     np.testing.assert_array_equal(got_q.numpy(), want_q)
     np.testing.assert_array_equal(got_s.numpy(), want_s)
@@ -438,8 +439,9 @@ def _check_single_branch_batch_of_three():
     sizes = batch["image_sizes"].numpy() // stride
     valid = ((np.arange(feat.shape[1])[None, :, None] < sizes[:, 0, None, None])
              & (np.arange(feat.shape[2])[None, None, :] < sizes[:, 1, None, None]))
-    want = jm.apply(params, jnp.asarray(feat.numpy()), jnp.asarray(valid),
-                    method=lambda m, f, v: m.data_aware_head(f, pixel_valid=v))
+    want = jax.jit(lambda p, f, v: jm.apply(
+        p, f, v, method=lambda m, f, v: m.data_aware_head(f, pixel_valid=v)))(
+        params, jnp.asarray(feat.numpy()), jnp.asarray(valid))
     assert feat.shape[0] == 3 and got.shape == want.shape == (1, 64)
     np.testing.assert_allclose(got.numpy(), want, rtol=RTOL, atol=1e-6)
 
@@ -475,10 +477,13 @@ def test_mrrp_weight_round_trip():
     jparams = {"params": template["params"]["roi_heads"]["object_miner"]}
     x = rng.randn(3, 2, 7, 64).astype(np.float32)
     valid = rng.rand(2, 7) > 0.3
-    for c in (5, 1):
-        jm = JaxObjectMiner(num_classes=c, context=True)
-        jp = jax.tree_util.tree_map(lambda a: a[..., :c], jparams)
-        want = jm.apply(jp, jnp.asarray(x), jnp.asarray(valid))
+    classes = (5, 1)
+    wants = jax.jit(lambda jp, x, v: [  # both class counts in one compiled program
+        JaxObjectMiner(num_classes=c, context=True).apply(
+            jax.tree_util.tree_map(lambda a: a[..., :c], jp), x, v) for c in classes])(
+        jparams, jnp.asarray(x), jnp.asarray(valid))
+    for c, want in zip(classes, wants):
+        want = np.asarray(want)
         tm = ObjectMiningOutputLayers(64, c, context=True)
         tm.load_state_dict({k: v[:c] for k, v in miner.state_dict().items()})
         with torch.inference_mode():
@@ -515,9 +520,11 @@ def _check_vgg_backbone():
                                                               jnp.asarray(x))), seed=3)
         tm = VGG16(**kw)
         tm.load_state_dict(backbone_state_dict_from_jax(params["params"]), strict=True)
-        for train in (False, True):
-            want = np.asarray(jax.jit(lambda p, v: jm.apply(p, v, train=train))(
-                params, jnp.asarray(x))["plain5"])
+        modes = (False, True)
+        wants = jax.jit(lambda p, v: [jm.apply(p, v, train=train)["plain5"] for train in modes])(
+            params, jnp.asarray(x))  # both modes in one compiled program
+        for train, want in zip(modes, wants):
+            want = np.asarray(want)
             with torch.inference_mode():
                 got = tm(_t(x), train=train)["plain5"].numpy()
             copies = 3 if mrrp and train else 1

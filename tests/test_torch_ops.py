@@ -1,8 +1,8 @@
 """The port's NMS, top-proposal selection, anchors and box ops against the
 JAX package on the same seeded inputs. Keep masks and selected indices are
 compared exactly; box arithmetic to 1e-6 (float32, same formulas). The JAX
-side runs under ``jax.jit``: one compiled program per case, not one per
-primitive."""
+side runs under ``jax.jit``: one compiled program per case (the box ops' and
+the top proposals' cases in one), not one per primitive."""
 
 import jax
 import jax.numpy as jnp
@@ -83,9 +83,10 @@ def test_proposals_anchors_and_box_ops_match_jax():
     logits = [rng.randn(b, 150).astype(np.float32), rng.randn(b, 60).astype(np.float32)]
     logits[0][0, 3] = np.nan  # sorts last, as -inf
     sizes = np.array([[100, 110], [90, 120]], np.int32)
-    for min_size in (0.0, 12.0):
-        j = jax.jit(lambda lv, lg, sz: jax_find_top(lv, lg, sz, 0.7, 64, 24, min_size))(
-            levels, logits, sizes)
+    sizes_min = (0.0, 12.0)
+    wants = jax.jit(lambda lv, lg, sz: [jax_find_top(lv, lg, sz, 0.7, 64, 24, min_size)
+                                        for min_size in sizes_min])(levels, logits, sizes)
+    for min_size, j in zip(sizes_min, wants):
         t = find_top_rpn_proposals([torch.from_numpy(x) for x in levels],
                                    [torch.from_numpy(x) for x in logits],
                                    torch.from_numpy(sizes), 0.7, 64, 24, min_size)
@@ -108,18 +109,24 @@ def test_proposals_anchors_and_box_ops_match_jax():
     d_clamped = d.copy()
     d_clamped[..., 2::4] *= 40.0  # exp clamp at log(1000/16)
     w = (10.0, 10.0, 5.0, 5.0)
+
+    def box_ops(a, box_sizes, d, d_clamped):  # one compiled program for every op
+        return {"iou": jax.vmap(lambda x: jboxes.pairwise_iou(x, x))(a),
+                "clip": jax.vmap(lambda x, s: jboxes.clip_boxes(x, (s[0], s[1])))(a, box_sizes),
+                "nonempty": jboxes.nonempty_boxes(a, 10.0),
+                "deltas": jboxes.apply_deltas(d, a, weights=w),
+                "deltas_clamped": jboxes.apply_deltas(d_clamped, a, weights=w)}
+
+    wants = jax.jit(box_ops)(a, box_sizes, d, d_clamped)
     cases = {
-        "iou": (jax.jit(jax.vmap(lambda x: jboxes.pairwise_iou(x, x)))(a),
-                tboxes.pairwise_iou(torch.from_numpy(a), torch.from_numpy(a))),
-        "clip": (jax.jit(jax.vmap(lambda x, s: jboxes.clip_boxes(x, (s[0], s[1]))))(a, box_sizes),
-                 tboxes.clip_boxes(torch.from_numpy(a), torch.from_numpy(box_sizes))),
-        "nonempty": (jax.jit(lambda x: jboxes.nonempty_boxes(x, 10.0))(a),
-                     tboxes.nonempty_boxes(torch.from_numpy(a), 10.0)),
+        "iou": tboxes.pairwise_iou(torch.from_numpy(a), torch.from_numpy(a)),
+        "clip": tboxes.clip_boxes(torch.from_numpy(a), torch.from_numpy(box_sizes)),
+        "nonempty": tboxes.nonempty_boxes(torch.from_numpy(a), 10.0),
     }
     for name, deltas in (("deltas", d), ("deltas_clamped", d_clamped)):
-        cases[name] = (jax.jit(lambda d, a: jboxes.apply_deltas(d, a, weights=w))(deltas, a),
-                       tboxes.apply_deltas(torch.from_numpy(deltas), torch.from_numpy(a), weights=w))
-    for name, (want, got) in cases.items():
+        cases[name] = tboxes.apply_deltas(torch.from_numpy(deltas), torch.from_numpy(a), weights=w)
+    for name, got in cases.items():
+        want = wants[name]
         np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-6, atol=1e-5, err_msg=name)
 
 

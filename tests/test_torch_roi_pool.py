@@ -34,6 +34,16 @@ box so the ROIs fall on all four levels, float32 and bfloat16), and against
 ``roi_pool_pallas`` in interpret mode per level (boxes clipped to the image,
 ROADMAP 3.1; one ROI per grid step, 3x3 bins, float32): exact.
 
+Pooled FPN levels that do not start at the finest (ROADMAP 3.15), inside
+the same items: the port's ``ROIPooler`` on ``[p3, p4, p5]`` against the
+jnp ``roi_pool`` per level at that level's scale, each ROI on the level the
+JAX ``assign_boxes_to_levels`` gives it within 3 to 5, gated alike: exact.
+
+Kernel 2.9, inside ``test_wrapper_contract``: the plain row fold and bin
+row walk (``wsovod_torch.scripts``) against the TPU microbenchmarks'
+kernels ``mk`` and ``build`` in Pallas interpret mode, every dtype and
+case: exact.
+
 The emission modes of the gated ROIPool (``maxabs``, ``int8``, ``tile8``)
 and of the align (``int8``), inside the same items:
 
@@ -54,22 +64,35 @@ and of the align (``int8``), inside the same items:
   the align as against the TPU kernel.
 """
 
+import ast
+import importlib.util
+import os
+import types
+
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from jax.experimental.pallas import tpu as pltpu
 
 from torch_port_common import (
-    LEVEL_SCALES, clip_to_image, jax_level_pool, jax_pallas_per_level, jax_pool_emission,
-    level_pool_inputs, np_quant_scale, np_quantize_tiles, port_levels, routed_pool_inputs,
+    LEVEL_SCALES, REPO, SWIN_YAML, clip_to_image, jax_level_pool, jax_pallas_per_level,
+    jax_pool_emissions, level_pool_inputs, np_quant_scale, np_quantize_tiles, port_levels,
+    routed_pool_inputs, tiny_cfg,
 )
+from wsovod_tpu.models.poolers import assign_boxes_to_levels as jax_assign_levels
 from wsovod_tpu.ops.pallas.roi_align_fused import _fused_ad_bwd, roi_align_fused_batched
 from wsovod_tpu.ops.pallas.roi_align_kernel import roi_align_pallas
 from wsovod_tpu.ops.roi_pool import roi_align as jax_roi_align
 from wsovod_tpu.ops.roi_pool import roi_pool as jax_roi_pool
+from wsovod_torch.config import check_supported, get_cfg
+from wsovod_torch.models.backbones import build_backbone
+from wsovod_torch.models.poolers import build_pooler
 from wsovod_torch.ops import roi_align as align
 from wsovod_torch.ops import roi_pool as port
+from wsovod_torch.scripts import bench_i8walk as walk
+from wsovod_torch.scripts import bench_vpu_pack as fold
 
 SCALE = 0.125  # stride 8, the DC5 res5 scale
 P = 7
@@ -143,6 +166,64 @@ def test_plain_gated_pool_exact():
     _check_emissions()
     _check_align_int8()
     _check_level_pool()
+    _check_offset_levels()
+
+
+def _check_offset_levels():
+    """Pooled FPN levels that do not start at the finest (ROADMAP 3.15):
+    the port's ``ROIPooler`` built on ``ROI_HEADS.IN_FEATURES [p3, p4, p5]``
+    (scales 1/8, 1/16, 1/32, levels 3 to 5) pools its chunk bit for bit as
+    the jnp ``roi_pool`` on each ROI's level at that level's scale, the
+    level from the JAX ``assign_boxes_to_levels`` with the same bounds, the
+    same ``(objectness+1)*valid`` gate on both sides; float32 and bfloat16;
+    a few boxes per level, overhanging and degenerate ones among them."""
+    cfg = tiny_cfg(get_cfg(), SWIN_YAML)
+    cfg.MODEL.ROI_HEADS.IN_FEATURES = ["p3", "p4", "p5"]
+    check_supported(cfg)
+    strides = build_backbone(cfg).output_strides()
+    pooler = build_pooler(cfg, [strides[f] for f in cfg.MODEL.ROI_HEADS.IN_FEATURES])
+    assert pooler.scales == (0.125, 0.0625, 0.03125)
+    assert (pooler.min_level, pooler.max_level) == (3, 5)
+    rng = np.random.RandomState(11)
+    img_h, img_w, b, c = 520, 640, 2, 8
+    feats = [rng.randn(b, -(-img_h // s), -(-img_w // s), c).astype(np.float32)
+             for s in (8, 16, 32)]
+    sides = np.array([40, 150, 230, 300, 440, 470, 600, 900], np.float32)  # 3, 3, 4, 4, 4, 5, 5, 5
+    xy = rng.uniform(-30, 300, (b, len(sides), 2)).astype(np.float32)
+    rois = np.concatenate([xy, xy + sides[None, :, None]], -1)
+    edge = np.array([[img_w - 60, img_h - 40, img_w + 200, img_h + 250],  # overhangs right/bottom
+                     [-80, -50, 160, 120],  # overhangs left/top
+                     [300, 200, 100, 50],  # degenerate: x2 < x1, y2 < y1
+                     [20, 20, 20, 20],  # zero size
+                     [0, 0, img_w, img_h],  # the whole image
+                     [50, 60, 90, 100]], np.float32)  # invalid below
+    rois = np.concatenate([rois, np.broadcast_to(edge, (b,) + edge.shape)], 1).astype(np.float32)
+    valid = np.ones(rois.shape[:2], bool)
+    valid[:, -1] = False
+    valid[1, 2] = False
+    gate = ((rng.rand(*valid.shape) + 1.0) * valid).astype(np.float32)
+    zeroed = np.where(valid[..., None], rois, 0.0).astype(np.float32)
+    level = np.asarray(jax_assign_levels(jnp.asarray(zeroed), 3, 5))
+    assert set(np.unique(level[valid])) == {0, 1, 2}
+    dtypes = ("float32", "bfloat16")
+    # one compiled program for every dtype, level and image; the features
+    # arrive cast and the results leave in their dtype (a cast inside would
+    # let XLA skip a bfloat16 rounding)
+    pooled = jax.jit(lambda fss, r, g: [[[
+        jax_roi_pool(f[i], r[i], P, scale) * g[i].astype(f.dtype)[:, None, None, None]
+        for i in range(b)] for f, scale in zip(fs, pooler.scales)] for fs in fss])(
+        [[jnp.asarray(f, dtype) for f in feats] for dtype in dtypes], jnp.asarray(zeroed),
+        jnp.asarray(gate))
+    for dtype, per_level in zip(dtypes, pooled):
+        want = np.zeros((b, rois.shape[1], P, P, c), np.float32)
+        for lvl, per_image in enumerate(per_level):
+            for i, gated in enumerate(per_image):
+                want[i, level[i] == lvl] = np.asarray(gated.astype(jnp.float32))[level[i] == lvl]
+        tdt = getattr(torch, dtype)
+        got = next(pooler.chunks([_t(f).to(tdt) for f in feats], _t(rois), _t(gate), _t(valid), c))
+        assert got.dtype == tdt and got.shape == want.shape
+        np.testing.assert_array_equal(got.float().numpy(), want, err_msg=dtype)
+    assert (np.abs(want[valid]).reshape(int(valid.sum()), -1).max(-1) > 0).sum() >= len(sides)
 
 
 def _check_level_pool():
@@ -324,7 +405,8 @@ def _check_align_backward():
 
 def test_wrapper_contract():
     """The CPU path counts no kernel launch; malformed inputs raise; the
-    routed pool equals the unrouted one on each ROI's copy."""
+    routed pool equals the unrouted one on each ROI's copy; kernel 2.9's
+    plain versions equal the TPU microbenchmarks' kernels (``_check_walks``)."""
     feat, rois, gate = (torch.from_numpy(a) for a in _inputs(2, n=9))
     before = port.LAUNCHES
     port.roi_pool_gated(feat, rois, gate, 0, 24)
@@ -434,6 +516,87 @@ def test_wrapper_contract():
     with pytest.raises(NotImplementedError):
         port.roi_pool_levels([f.clone().requires_grad_(True) for f in feats], lrois, lgate, level,
                              0, 8, P, LEVEL_SCALES)
+    _check_walks()
+
+
+def _load_defs(path, name):
+    """The module at ``path`` with only its imports, assignments and
+    ``def``s run: ``scripts/bench_vpu_pack.py`` runs its benchmark when it
+    is imported (a module-level loop, no ``main`` guard)."""
+    with open(path) as f:
+        tree = ast.parse(f.read(), path)
+    tree.body = [n for n in tree.body
+                 if isinstance(n, (ast.Import, ast.ImportFrom, ast.Assign, ast.FunctionDef))]
+    mod = types.ModuleType(name)
+    mod.__file__ = path
+    exec(compile(tree, path, "exec"), mod.__dict__)
+    return mod
+
+
+def _check_walks():
+    """Kernel 2.9: the plain versions (the CPU path of ``row_fold`` and
+    ``row_walk``) against the TPU kernels ``mk`` (``scripts/
+    bench_vpu_pack.py``, loaded through ``_load_defs``) and ``build``
+    (``scripts/bench_i8walk.py``) in Pallas interpret mode, their modules'
+    sizes shrunk (3 pseudo-ROIs a step and 3 bins a ROI, which the kernels
+    unroll; the 96-wide window keeps two positions), bit for bit: the
+    fold in float32, bfloat16 and int8 (a window column of all -128 folds to
+    -127), the walk in cases A-F on the JAX script's inputs (``make_inputs``;
+    an int8 column of all -128); no launch counted on the CPU; malformed
+    inputs raise."""
+    vp = _load_defs(os.path.join(REPO, "scripts", "bench_vpu_pack.py"), "jax_bench_vpu_pack")
+    vp.H, vp.W, vp.CT, vp.NROI = 30, 64, 128, 3  # mk unrolls its pseudo-ROIs
+    spec = importlib.util.spec_from_file_location(
+        "jax_bench_i8walk", os.path.join(REPO, "scripts", "bench_i8walk.py"))
+    iw = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(iw)
+    iw.H, iw.W, iw.CT, iw.NB, iw.P = 12, 104, 128, 2, 3  # build unrolls its bins
+    before = (fold.LAUNCHES, walk.LAUNCHES)
+    dtypes = ((jnp.float32, torch.float32), (jnp.bfloat16, torch.bfloat16),
+              (jnp.int8, torch.int8))
+    maps = [fold.make_map(tdt, "cpu", seed=3, shape=(vp.H, vp.W, vp.CT)) for _, tdt in dtypes]
+    x0 = fold.origins(vp.NROI, vp.H, vp.W, vp.ROWS, vp.WIN)[1]
+    maps[2][:, int(x0[-1]) + 5] = -128  # int8: one column of the last window
+    feats, hlo, x0 = walk.make_inputs("cpu", h=iw.H, w=iw.W, c=iw.CT, nb=iw.NB, bins=iw.P)
+    feats["int8"][0, :, 3] = -128
+    jfeats = {dt: jnp.asarray(f.float().numpy()).astype(jnp.bfloat16 if dt == "bf16" else jnp.int8)
+              for dt, f in feats.items()}
+    with pltpu.force_tpu_interpret_mode():  # each kernel family in one compiled program
+        folds = jax.jit(lambda ms: [vp.mk(jdt)(m) for (jdt, _), m in zip(dtypes, ms)])(
+            [jnp.asarray(m.float().numpy()).astype(jdt) for (jdt, _), m in zip(dtypes, maps)])
+        walks = jax.jit(lambda h, xs, fs: [iw.build(fs[dt].dtype, win)(h, xs[name], fs[dt])
+                                           for name, dt, win in walk.CASES])(
+            jnp.asarray(hlo.numpy()), {k: jnp.asarray(v.numpy()) for k, v in x0.items()}, jfeats)
+    for (_, tdt), feat, want in zip(dtypes, maps, folds):
+        got = fold.row_fold(feat, n_roi=vp.NROI)
+        assert got.dtype == tdt and got.shape == (8, vp.WIN, vp.CT)
+        np.testing.assert_array_equal(got.float().numpy(), np.asarray(want.astype(jnp.float32)),
+                                      err_msg=str(tdt))
+    assert (got[:, 5] == -127).all() and (got == -127).sum() == 8 * vp.CT
+    for (name, dt, win), want in zip(walk.CASES, walks):
+        got = walk.row_walk(feats[dt], hlo, x0[name], win, bins=iw.P)
+        assert got.dtype == torch.bfloat16 and got.shape == (iw.P, win or iw.W, iw.CT)
+        np.testing.assert_array_equal(got.float().numpy(), np.asarray(want.astype(jnp.float32)),
+                                      err_msg=name)
+        if dt == "int8" and win is None:
+            assert (got[:, 3] == -128).all()
+    feat = maps[2]
+    assert (fold.LAUNCHES, walk.LAUNCHES) == before
+    with pytest.raises(TypeError):
+        fold.row_fold(feat.half())
+    for bad in ({"rows": vp.H}, {"win": vp.W}, {"n_roi": 0}):
+        with pytest.raises(ValueError):
+            fold.row_fold(feat.float(), **bad)
+    with pytest.raises(ValueError):
+        fold.row_fold(feat.to("meta"))
+    win_x0 = x0["C bf16 win48  "]
+    for bad in ((feats["bf16"][0], hlo, win_x0), (feats["bf16"], hlo[:-1], win_x0[:-1]),
+                (feats["bf16"], hlo, win_x0[:-iw.P])):
+        with pytest.raises(ValueError):
+            walk.row_walk(*bad, 48, bins=iw.P)
+    for bad in ((feats["bf16"].float(), hlo, win_x0), (feats["bf16"], hlo.long(), win_x0)):
+        with pytest.raises(TypeError):
+            walk.row_walk(*bad, 48, bins=iw.P)
 
 
 def _check_emissions():
@@ -445,19 +608,19 @@ def _check_emissions():
     img_w, img_h = feat.shape[2] / SCALE, feat.shape[1] / SCALE
     rois_c = clip_to_image(rois, img_w, img_h)
     f, r, g = _t(feat), _t(rois_c), _t(gate)
+    (want, part), (want_q, want_s), tile8 = jax_pool_emissions(
+        feat, rois_c, gate, [(quant, False, False) for quant in ("maxabs", "int8", "tile8")], 128)
     # maxabs: the gated payload and max |payload| per (ROI, chunk)
-    want, part = jax_pool_emission(feat, rois_c, gate, "maxabs", 128)
     got, m = port.roi_pool_gated_maxabs(f, r, g, 0, 256, PJ, SCALE)
     np.testing.assert_array_equal(got.numpy(), want)
     np.testing.assert_array_equal(m.numpy(), part.max(axis=(1, 3)))  # partials [B, n_ct, N, lanes]
     # int8: payload and per-(ROI, c_tile) scales [B, n_ct, N]
-    want_q, want_s = jax_pool_emission(feat, rois_c, gate, "int8", 128)
     got_q, got_s = port.roi_pool_gated_int8(f, r, g, 0, 256, 128, PJ, SCALE)
     assert got_q.dtype == torch.int8 and got_s.shape == (2, 2, 24) and got_q.shape[2] == PJ
     np.testing.assert_array_equal(got_q.numpy(), want_q)
     np.testing.assert_array_equal(got_s.numpy(), want_s)
     # tile8: the per-image quantized chunk's max pool, scale gate * s
-    want_q, want_s = jax_pool_emission(feat, rois_c, gate, "tile8", 128)
+    want_q, want_s = tile8
     got_q, got_s = port.roi_pool_gated_tile8(f, r, g, 0, 256, PJ, SCALE)
     np.testing.assert_array_equal(got_q.numpy(), want_q)
     np.testing.assert_array_equal(got_s.numpy(), want_s[:, 0])  # every tile holds gate * s

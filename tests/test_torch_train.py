@@ -176,16 +176,16 @@ def _check_mining_and_heads():
     key = jax.random.PRNGKey(3)
     u_pos, u_neg = _batched_draws(key, b, p)
     jmatcher = JaxMatcher([0.5], [0, 1])
-    for wsl in (True, False):
+    jlabels = jax.jit(lambda pb, pv, pg, ks: (  # both labellers in one compiled program
+        jax.vmap(lambda pb, pv, pg, k: jmine.label_and_sample_wsl(
+            pb, pv, pg, jmatcher, c, 8, 0.5, k))(pb, pv, pg, ks),
+        jax.vmap(lambda pb, pv, pg: jmine.label_and_sample_plain(pb, pv, pg, jmatcher, c))(
+            pb, pv, pg)))(jnp.asarray(boxes), jnp.asarray(valid), jpgt, jax.random.split(key, b))
+    for wsl, jl in zip((True, False), jlabels):
         if wsl:
-            jl = jax.jit(jax.vmap(lambda pb, pv, pg, k: jmine.label_and_sample_wsl(
-                pb, pv, pg, jmatcher, c, 8, 0.5, k)))(
-                jnp.asarray(boxes), jnp.asarray(valid), jpgt, jax.random.split(key, b))
             tl = tmine.label_and_sample_wsl(_t(boxes), _t(valid), tpgt, Matcher([0.5], [0, 1]), c,
                                             8, 0.5, u_pos, u_neg)
         else:
-            jl = jax.jit(jax.vmap(lambda pb, pv, pg: jmine.label_and_sample_plain(
-                pb, pv, pg, jmatcher, c)))(jnp.asarray(boxes), jnp.asarray(valid), jpgt)
             tl = tmine.label_and_sample_plain(_t(boxes), _t(valid), tpgt, Matcher([0.5], [0, 1]), c)
         for name in tmine.LabeledProposals._fields:
             np.testing.assert_array_equal(getattr(tl, name).numpy(), getattr(jl, name),
@@ -195,10 +195,14 @@ def _check_mining_and_heads():
     # the object miner: forward, image-level scores and BCE
     x = rng.randn(b, p, 16).astype(np.float32)
     jm = jmil.ObjectMiningOutputLayers(num_classes=c)
-    jparams = jax.jit(jm.init)(jax.random.PRNGKey(0), x, valid)
-    jscores = jax.jit(jm.apply)(jparams, x, valid)
     oh = (rng.rand(b, c) > 0.5).astype(np.float32)
-    jloss = jax.jit(jm.losses)(jscores, jnp.asarray(oh))
+
+    def miner(x, valid, oh):  # one compiled program: init, forward, loss
+        jparams = jm.init(jax.random.PRNGKey(0), x, valid)
+        jscores = jm.apply(jparams, x, valid)
+        return jparams, jscores, jm.losses(jscores, oh)
+
+    jparams, jscores, jloss = jax.jit(miner)(x, valid, jnp.asarray(oh))
     tm = tmil.ObjectMiningOutputLayers(16, c)
     tm.load_state_dict({f"{nm}.{k}": _t(np.asarray(v).T if k == "weight" else v)
                         for nm in ("cls", "det")
@@ -215,14 +219,15 @@ def _check_mining_and_heads():
     # the refinery losses on the labelled proposals, weighted and not
     scores_k = rng.randn(b, p, c + 1).astype(np.float32)
     deltas_k = (rng.randn(b, p, 4) * 0.1).astype(np.float32)
-    for weighted, beta in ((True, 0.0), (False, 0.5)):
-        jr = jmil.InstanceRefinementOutputLayers(num_classes=c, refine_k=1, refine_reg=True,
-                                                 cross_entropy_weighted=weighted,
-                                                 smooth_l1_beta=beta)
-        want = jax.jit(jr.losses)(jnp.asarray(scores_k), jnp.asarray(deltas_k), jnp.asarray(boxes),
-                                  *(jnp.asarray(getattr(labeled, f).numpy())
-                                    for f in ("gt_classes", "gt_boxes", "gt_weights")),
-                                  jnp.asarray(valid))
+    variants = ((True, 0.0), (False, 0.5))
+    wants = jax.jit(lambda *a: [  # both variants in one compiled program
+        jmil.InstanceRefinementOutputLayers(
+            num_classes=c, refine_k=1, refine_reg=True, cross_entropy_weighted=weighted,
+            smooth_l1_beta=beta).losses(*a) for weighted, beta in variants])(
+        jnp.asarray(scores_k), jnp.asarray(deltas_k), jnp.asarray(boxes),
+        *(jnp.asarray(getattr(labeled, f).numpy()) for f in ("gt_classes", "gt_boxes", "gt_weights")),
+        jnp.asarray(valid))
+    for (weighted, beta), want in zip(variants, wants):
         tr = tmil.InstanceRefinementOutputLayers(16, refine_reg=True, weight_dim=8, refine_k=1,
                                                  cross_entropy_weighted=weighted,
                                                  smooth_l1_beta=beta)

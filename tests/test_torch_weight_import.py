@@ -4,8 +4,10 @@
   -> ``state_dict_from_jax`` come back bit-equal, and load into the port's
   model with ``strict=True``, whose ``state_dict`` gives them back again;
 * ``wsovod_torch`` imports and builds its models, plain and MRRP, and its
-  trainer takes an iteration, with ``jax``, ``flax`` and ``wsovod_tpu``
-  blocked from import;
+  trainer takes an iteration, and the 2.9 microbenchmarks' entry points
+  (``wsovod_torch.scripts``) exit non-zero without a card, with ``jax``,
+  ``flax`` and ``wsovod_tpu`` blocked from import and nothing of the JAX
+  package's ``scripts/`` imported;
 * the port's own config tree equals the JAX package's apart from the four
   port defaults, before and after merging the YAMLs; the keys it refuses by
   name; feature names the backbone does not give raise a ``ValueError``
@@ -17,7 +19,8 @@
   the int8 keys (the RPN conv int8 on every level, fc1 in floating point as
   the JAX package's unfused multi-level path runs it), and refuses by name
   on several levels the ROIAlign, MRRP and pooled levels out of order or
-  with a gap, and its training;
+  with a gap, and its training; an ``RPN.IN_FEATURES`` other than the
+  backbone's first outputs is refused by name (ROADMAP 3.14);
 * the Swin FPN's tree (Dense ``[in, out]`` to ``Linear [out, in]``, conv
   HWIO to OIHW, the relative position bias tables, the LayerNorms, the
   bias-free ``reduction``, ``fpn_lateral_*``/``fpn_output_*``) loads into
@@ -163,8 +166,13 @@ with tempfile.TemporaryDirectory() as out:
                             embeddings=torch.from_numpy(embeddings()), device="cpu")
     trainer.train()
     assert trainer.step.step == 1
+# the 2.9 microbenchmarks' entry points: without a card they exit non-zero
+from wsovod_torch.scripts import bench_i8walk, bench_vpu_pack
+if not torch.cuda.is_available():
+    assert bench_vpu_pack.main() != 0 and bench_i8walk.main() != 0
 bad = [m for m in sys.modules
-       if m.split(".")[0] in ("jax", "jaxlib", "flax", "wsovod_tpu") and sys.modules[m] is not None]
+       if m.split(".")[0] in ("jax", "jaxlib", "flax", "wsovod_tpu", "scripts")
+       and sys.modules[m] is not None]
 assert not bad, bad
 assert "WSOVOD_NO_COMPILE_CACHE" not in os.environ
 print("OK")
@@ -237,6 +245,12 @@ def _check_admitted_poolers():
             check_train_supported(cfg)
         cfg.MODEL.BACKBONE.NAME = "build_swin_backbone"
         cfg.MODEL.RPN.IN_FEATURES = cfg.MODEL.ROI_HEADS.IN_FEATURES = ["stage5"]
+        # the RPN's anchor strides are the backbone's first outputs'
+        # (ROADMAP 3.14): stage5 with stage2-5 out is refused, stage5 alone
+        # admitted
+        with pytest.raises(NotImplementedError, match=r"RPN\.IN_FEATURES.*first outputs"):
+            check_supported(cfg)
+        cfg.MODEL.SWIN.OUT_FEATURES = ["stage5"]
         check_supported(cfg)
         with pytest.raises(NotImplementedError, match=r"BACKBONE\.NAME.*Swin"):
             check_train_supported(cfg)
@@ -344,6 +358,13 @@ _UNPORTED_SWIN = [
     ("MODEL.MRRP.MRRP_ON", True, "MRRP on several levels"),
     ("MODEL.ROI_HEADS.IN_FEATURES", ["p5", "p4", "p3", "p2"], r"ROI_HEADS\.IN_FEATURES.*consecutive"),
     ("MODEL.ROI_HEADS.IN_FEATURES", ["p2", "p4"], r"ROI_HEADS\.IN_FEATURES.*consecutive"),
+    # anchor strides per RPN.IN_FEATURES: a departure from the JAX package,
+    # whose RPN takes the backbone's first strides (ROADMAP 3.14)
+    ("MODEL.RPN.IN_FEATURES", ["p3", "p4", "p5", "p6"], r"RPN\.IN_FEATURES.*first outputs"),
+    # the FPN gives its levels in FPN.IN_FEATURES order: p3 first here, so
+    # p2-p6 would anchor p2 at p3's stride
+    ("MODEL.FPN.IN_FEATURES", ["stage3", "stage2", "stage4", "stage5"],
+     r"RPN\.IN_FEATURES.*first outputs \['p3', 'p2'"),
 ]
 # refused on the MRRP config (ROIPool, ROILoopPool, ROIAlignV2 and ROIAlign
 # are ported, with or without MRRP, on one level)

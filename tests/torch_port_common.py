@@ -5,8 +5,12 @@ reference model with its parameters, built once per process."""
 from __future__ import annotations
 
 import contextlib
+import fcntl
 import functools
+import hashlib
 import os
+import pickle
+import tempfile
 
 import numpy as np
 import torch
@@ -176,7 +180,6 @@ def random_params(shapes, seed: int = 0):
     return jax.tree_util.tree_map_with_path(fill, shapes)
 
 
-@functools.lru_cache(maxsize=None)
 def jax_reference(yaml: str = TINY_YAML, test_branch_idx=None, pooler=None, quant="none"):
     """``(model, params)`` of the JAX package on the tiny config (``yaml``,
     ``test_branch_idx``, ``pooler`` and ``quant`` as ``tiny_cfg``), with
@@ -188,7 +191,14 @@ def jax_reference(yaml: str = TINY_YAML, test_branch_idx=None, pooler=None, quan
     ``jax_reference(yaml)``. The JAX package's multi-level pooler cannot be
     traced (it takes ``int()`` of a ``jnp.log2`` of its scales), so the
     Swin FPN's parameter tree is traced on one pooled level: the pooler
-    owns no parameters, and the tree is the same."""
+    owns no parameters, and the tree is the same. Cached by the
+    arguments' values, however they are passed: ``jax_reference()`` and
+    ``jax_reference(TINY_YAML, None)`` trace the parameter tree once."""
+    return _jax_reference(yaml, test_branch_idx, pooler, quant)
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_reference(yaml: str, test_branch_idx, pooler, quant: str):
     import jax
     import jax.numpy as jnp
 
@@ -203,32 +213,64 @@ def jax_reference(yaml: str = TINY_YAML, test_branch_idx=None, pooler=None, quan
         cfg = tiny_cfg(get_cfg(), yaml)
         cfg.MODEL.ROI_HEADS.IN_FEATURES = cfg.MODEL.ROI_HEADS.IN_FEATURES[:1]
         traced = build_model(cfg)
-    # the parameter shapes do not depend on the batch: trace the smallest
-    batch = {k: jnp.asarray(v) for k, v in make_batch(b=1, s=2, size=32, gt=True).items()}
-    emb = jnp.asarray(embeddings())
-    shapes = jax.eval_shape(
-        lambda: traced.init({"params": jax.random.PRNGKey(0), "dropout": jax.random.PRNGKey(1)},
-                           batch, train=True, iteration=jnp.asarray(1),
-                           rng=jax.random.PRNGKey(2), embeddings=emb)
-    )
-    return model, random_params(shapes)
+
+    def shapes():  # they do not depend on the batch: trace the smallest
+        batch = {k: jnp.asarray(v) for k, v in make_batch(b=1, s=2, size=32, gt=True).items()}
+        emb = jnp.asarray(embeddings())
+        return jax.eval_shape(lambda: traced.init(
+            {"params": jax.random.PRNGKey(0), "dropout": jax.random.PRNGKey(1)}, batch,
+            train=True, iteration=jnp.asarray(1), rng=jax.random.PRNGKey(2), embeddings=emb))
+
+    return model, random_params(run_shared("jax_reference shapes", (yaml,), shapes))
 
 
-@functools.lru_cache(maxsize=None)
 def jax_stages(seed: int, yaml: str = TINY_YAML, test_branch_idx=None, pooler=None):
     """The JAX model (``jax_reference(yaml, test_branch_idx, pooler)``) on
     ``batch_for(yaml, seed)``, as numpy: ``(features, rpn proposals, data-aware
     vector, forward)`` where ``forward`` is ``model.apply(..., train=False,
     return_proposals=True)``'s ``(det, probs, boxes, (proposal_boxes,
     objectness, valid))``. One compiled program per config serves every
-    seed (the Swin FPN's traced as ``jax_apply`` says)."""
+    seed (the Swin FPN's traced as ``jax_apply`` says). Cached by the
+    arguments' values, however they are passed."""
+    return _jax_stages(seed, yaml, test_branch_idx, pooler)
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_stages(seed: int, yaml: str, test_branch_idx, pooler):
     import jax
     import jax.numpy as jnp
 
-    model, params = jax_reference(yaml, test_branch_idx, pooler)
-    batch = {k: jnp.asarray(v) for k, v in batch_for(yaml, seed).items()}
-    return jax.tree_util.tree_map(np.array,
-                                  _jax_stage_fn(yaml, test_branch_idx, pooler)(params, batch))
+    def stages():
+        _, params = jax_reference(yaml, test_branch_idx, pooler)
+        batch = {k: jnp.asarray(v) for k, v in batch_for(yaml, seed).items()}
+        return jax.tree_util.tree_map(np.array,
+                                      _jax_stage_fn(yaml, test_branch_idx, pooler)(params, batch))
+
+    return run_shared("jax_stages", (seed, yaml, test_branch_idx, pooler), stages)
+
+
+def run_shared(kind: str, key: tuple, compute):
+    """``compute()``, once per pytest-xdist run: its workers share the value
+    through a file under the temporary directory, named by ``kind`` and
+    ``key`` (a worker that needs a value another is computing waits for it,
+    then reads it). Outside xdist, ``compute()``. The value must pickle.
+    Nothing outlives the run's id: every run computes its values anew."""
+    run = os.environ.get("PYTEST_XDIST_TESTRUNUID")
+    if not run:
+        return compute()
+    folder = os.path.join(tempfile.gettempdir(), f"wsovod_port_tests_{run}")
+    os.makedirs(folder, exist_ok=True)
+    path = os.path.join(folder, hashlib.sha256(repr((kind, key)).encode()).hexdigest()[:24])
+    with open(path + ".lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)  # released when the file closes
+        if os.path.exists(path):
+            with open(path, "rb") as f:
+                return pickle.load(f)
+        value = compute()
+        with open(path + ".tmp", "wb") as f:
+            pickle.dump(value, f)
+        os.replace(path + ".tmp", path)
+        return value
 
 
 @functools.lru_cache(maxsize=None)
@@ -333,7 +375,12 @@ def jax_int8_forward(yaml: str = TINY_YAML, routes=("default", "maxabs")):
     in a quarter of the time. One traced program holds every
     route of ``routes``: ``"default"`` (the bf16 emission, fc1 quantizes)
     and ``"maxabs"`` (``WSOVOD_POOL_MAXABS=1``, the kernels' maxabs
-    emission), the environment toggle set while that route is traced.
+    emission), the environment toggle set while that route is traced. The
+    first route runs the whole forward; the others run its ROI heads alone
+    on the first route's features, proposals (their ``level_ids`` the RPN's,
+    the SAM rows' 0, as the forward fuses them at inference) and
+    data-aware vector, since nothing before the ROI heads depends on the
+    route.
     Returns numpy ``{"stages": (features, rpn proposals with the int8 RPN
     conv, data-aware vector), route: forward}``, ``forward`` as in
     ``jax_stages``. Nothing in the JAX package changes: the patch and the
@@ -348,6 +395,11 @@ def jax_int8_forward(yaml: str = TINY_YAML, routes=("default", "maxabs")):
     emb = jnp.asarray(embeddings())
     batch = {k: jnp.asarray(v) for k, v in make_batch(0).items()}
 
+    from wsovod_tpu.structures.instances import Instances as JaxInstances
+
+    def heads(m, feats, props, sizes, daf, e):
+        return m.roi_heads.inference(feats, props, sizes, data_aware_features=daf, embeddings=e)
+
     def routed(p, b):
         out = {}
         saved = os.environ.pop("WSOVOD_POOL_MAXABS", None)
@@ -355,8 +407,18 @@ def jax_int8_forward(yaml: str = TINY_YAML, routes=("default", "maxabs")):
             for route in routes:
                 if route == "maxabs":
                     os.environ["WSOVOD_POOL_MAXABS"] = "1"
-                *stages, out[route] = _forward_and_front(model, p, b, emb)
-                out.setdefault("stages", tuple(stages))
+                if "stages" not in out:
+                    *stages, out[route] = _forward_and_front(model, p, b, emb)
+                    out["stages"] = tuple(stages)
+                else:
+                    feats, rpn, daf = out["stages"]
+                    props = out[routes[0]][3]
+                    level_ids = jnp.concatenate(
+                        [rpn.level_ids, jnp.zeros_like(b["sam_valid"], jnp.int32)], 1)
+                    fused = JaxInstances(props[2], proposal_boxes=props[0],
+                                         objectness_logits=props[1], level_ids=level_ids)
+                    out[route] = (*model.apply(p, feats, fused, b["image_sizes"], daf, emb,
+                                               method=heads), props)
                 os.environ.pop("WSOVOD_POOL_MAXABS", None)
         finally:
             if saved is not None:
@@ -470,31 +532,38 @@ def np_quant_scale(gate: np.ndarray, m: np.ndarray) -> np.ndarray:
     return (gate.astype(np.float32) * m) * np.float32(1.0 / 127.0)
 
 
-def jax_pool_emission(feat, rois, gate, quant, c_tile, src=None, loop=False, scale=0.125, p=3):
+def jax_pool_emissions(feat, rois, gate, specs, c_tile, src=None, scale=0.125, p=3):
     """``roi_pool_fused_batched`` (the TPU kernel) in Pallas interpret mode
-    on the whole channel range, under ``jax.jit`` as the pooler runs it (XLA
-    makes its ``/ 127.0`` a multiplication by the float32 reciprocal), with
-    one ROI per grid step (``roi_block=1``, so ``src_tbl`` is the per-ROI
-    source copy ``src [B, N]``; the block size only sets how many ROIs a
-    step unrolls, and one traces in a quarter of the time) and ``p x p``
-    bins (default 3: the kernel's trace grows with its bins; the tests hold
-    the port at 7 against the jnp reference). Returns numpy, the payload in
-    the port's layout ``[(3,) B, N, p, p, c]``."""
+    on the whole channel range, for each ``(quant, loop_pool, routed)`` of
+    ``specs`` (``routed``: ``src_tbl`` is the per-ROI source copy ``src [B,
+    N]``), all under one ``jax.jit`` as the pooler runs it (XLA makes its
+    ``/ 127.0`` a multiplication by the float32 reciprocal; one compiled
+    program, since a CPU compile costs about half a second of its own), with
+    one ROI per grid step (``roi_block=1``: the block size only sets how
+    many ROIs a step unrolls, and one traces in a quarter of the time) and
+    ``p x p`` bins (default 3: the kernel's trace grows with its bins; the
+    tests hold the port at 7 against the jnp reference). Returns a list of
+    numpy ``(payload, second)``, the payload in the port's layout ``[(3,)
+    B, N, p, p, c]``."""
     import jax
     import jax.numpy as jnp
 
     from wsovod_tpu.ops.pallas.roi_pool_fused import roi_pool_fused_batched
 
     def run(f, r, g, s):
-        return roi_pool_fused_batched(f, r, g, 0, p, scale, c_take=f.shape[-1], c_tile=c_tile,
-                                      roi_block=1, loop_pool=loop, quant=quant, src_tbl=s,
-                                      interpret=True)
+        return [roi_pool_fused_batched(f, r, g, 0, p, scale, c_take=f.shape[-1], c_tile=c_tile,
+                                       roi_block=1, loop_pool=loop, quant=quant,
+                                       src_tbl=s if routed else None, interpret=True)
+                for quant, loop, routed in specs]
 
-    out = jax.jit(run)(jnp.asarray(feat), jnp.asarray(rois), jnp.asarray(gate),
-                       None if src is None else jnp.asarray(src, jnp.int32))
-    payload, second = (np.asarray(x) for x in out)
-    axes = (0, 1, 4, 2, 3, 5) if loop else (0, 3, 1, 2, 4)  # hwnc -> n-major
-    return payload.transpose(axes), second
+    outs = jax.jit(run)(jnp.asarray(feat), jnp.asarray(rois), jnp.asarray(gate),
+                        None if src is None else jnp.asarray(src, jnp.int32))
+    got = []
+    for (_, loop, _), out in zip(specs, outs):
+        payload, second = (np.asarray(x) for x in out)
+        axes = (0, 1, 4, 2, 3, 5) if loop else (0, 3, 1, 2, 4)  # hwnc -> n-major
+        got.append((payload.transpose(axes), second))
+    return got
 
 
 def clip_to_image(rois: np.ndarray, img_w: float, img_h: float) -> np.ndarray:

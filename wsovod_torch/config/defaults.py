@@ -318,20 +318,31 @@ _VGG_BACKBONES = ("build_vgg_backbone", "build_mrrp_vgg_backbone")
 _SWIN_BACKBONES = ("build_swin_backbone", "build_swin_fpn_backbone")
 
 
+def _stage_number(feature: str) -> int:
+    """The stage or level number that ends a feature's name (``res5``,
+    ``plain4``, ``stage3``, ``p6``)."""
+    digits = feature[len(feature.rstrip("0123456789")):]
+    return int(digits) if digits else -1
+
+
 def _feature_names(m: CN) -> list:
-    """The features ``MODEL.BACKBONE.NAME`` gives: ``RESNETS.OUT_FEATURES``,
-    ``VGG.OUT_FEATURES``, ``SWIN.OUT_FEATURES``, or for the Swin FPN
-    ``p{k}`` of each ``stage{k}`` in ``FPN.IN_FEATURES`` (stride ``2**k``)
-    and one more level above the coarsest (``LastLevelMaxPool``)."""
+    """The features ``MODEL.BACKBONE.NAME`` gives, in its output order:
+    ``RESNETS.OUT_FEATURES``, ``VGG.OUT_FEATURES`` or ``SWIN.OUT_FEATURES``
+    in stage order, or for the Swin FPN ``p{k}`` of each ``stage{k}`` in
+    ``FPN.IN_FEATURES`` as written (stride ``2**k``), then one more level
+    above the coarsest (``LastLevelMaxPool``), as ``SwinFPN.output_strides``
+    gives them."""
     name = m.BACKBONE.NAME
-    if name in _VGG_BACKBONES:
-        return list(m.VGG.OUT_FEATURES)
-    if name == "build_swin_backbone":
-        return list(m.SWIN.OUT_FEATURES)
     if name == "build_swin_fpn_backbone":
-        levels = sorted(int(f[len("stage"):]) for f in m.FPN.IN_FEATURES)
-        return [f"p{k}" for k in levels + [levels[-1] + 1]]
-    return list(m.RESNETS.OUT_FEATURES)
+        levels = [_stage_number(f) for f in m.FPN.IN_FEATURES]
+        return [f"p{k}" for k in levels + [max(levels) + 1]]
+    if name in _VGG_BACKBONES:
+        out = m.VGG.OUT_FEATURES
+    elif name == "build_swin_backbone":
+        out = m.SWIN.OUT_FEATURES
+    else:
+        out = m.RESNETS.OUT_FEATURES
+    return sorted(out, key=_stage_number)
 
 
 def _consecutive_levels(features) -> bool:
@@ -385,7 +396,10 @@ def check_supported(cfg: CN) -> None:
     features the backbone gives: a ``ValueError`` names the key and the
     backbone's features otherwise (the shipped VGG YAMLs inherit
     ``RPN.IN_FEATURES: ["res5"]`` from their base; set it to
-    ``["plain5"]``)."""
+    ``["plain5"]``). ``MODEL.RPN.IN_FEATURES`` must then be the backbone's
+    first outputs, in order: the RPN's anchor levels take the strides of
+    those outputs, as the JAX package's do (ROADMAP 3.14), so any other
+    features are refused by name."""
     m = cfg.MODEL
     mrrp = m.MRRP
     pooler = m.ROI_BOX_HEAD.POOLER_TYPE
@@ -476,6 +490,16 @@ def check_supported(cfg: CN) -> None:
         if missing:
             raise ValueError(f"{key}={list(value)!r} names {missing}, which the backbone "
                              f"{m.BACKBONE.NAME} does not give: its features are {names}")
+    # the RPN's anchor levels take the backbone's first strides, in its
+    # output order, as the JAX package's build_model pairs them
+    # (wsovod_tpu/models/meta_arch.py:302-303): admitted only where those
+    # are the strides of RPN.IN_FEATURES (ROADMAP 3.14)
+    first = names[:rpn_levels]
+    if list(m.RPN.IN_FEATURES) != first:
+        _refuse("MODEL.RPN.IN_FEATURES", list(m.RPN.IN_FEATURES),
+                f"anchor strides of features other than the backbone's first outputs {first}: "
+                f"the RPN anchors each level at the stride of the backbone's output of the "
+                f"same rank")
 
 
 def check_train_supported(cfg: CN) -> None:

@@ -25,12 +25,16 @@ import numpy as np
 import torch
 
 
+# np.asarray first: np.transpose of an array type with its own transpose
+# method (a JAX array) calls that method, which compiles a program per shape
+
+
 def _conv(k: np.ndarray) -> np.ndarray:
-    return np.transpose(k, (3, 2, 0, 1))  # HWIO -> OIHW
+    return np.transpose(np.asarray(k), (3, 2, 0, 1))  # HWIO -> OIHW
 
 
 def _fc(k: np.ndarray) -> np.ndarray:
-    return np.transpose(k, (1, 0))  # [in, out] -> [out, in]
+    return np.transpose(np.asarray(k), (1, 0))  # [in, out] -> [out, in]
 
 
 def _convnorm(out: Dict[str, np.ndarray], prefix: str, p: Mapping[str, Any]) -> None:

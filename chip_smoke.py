@@ -107,8 +107,12 @@ Phases, in order; any failure exits nonzero before the last line is printed:
    training shape (the three branch copies of res5, ``[12, 100, 152,
    2048]``, the same box mix routed to random branches plus edge, 2-pixel
    and gate-0 rows, a post-ReLU map on a 0.25 grid), bfloat16 and float32,
-   both cotangents, one chunk: timed at full N, compared on the first 1024
-   ROIs per image; its time, the plain version's and the bound. Then the
+   both cotangents, one chunk: timed at full N (also with the ROI row
+   alone and with the frame), compared on the first 1024 ROIs per image;
+   the same map with dead areas (``dead_rects``) and the single-copy call
+   (``src`` the image, ``[4, 100, 152, 2048]``, with its own bound), each
+   timed at full N and compared on the first 256 ROIs per image; its time,
+   the plain version's and the bound. Then the
    gated ROIPool's backward routed by branch, the same way at the MRRP
    VGG16 training shape (plain5's three copies ``[12, 99, 151, 512]``).
    Then the ROIAlign's backward the same way at the training shape and,
@@ -203,6 +207,8 @@ TRAIN_FEAT_MRRP = (N_BRANCH * TB,) + TRAIN_FEAT[1:]  # the three branch copies o
 TRAIN_ITERS, RES5_ITERS = 8, 4  # iterations of the two plain train slices (ITER_SIZE 4)
 MRRP_ITERS, MRRP_RES5_ITERS = 4, 4  # iterations of the two MRRP train slices
 LOOP_BWD_PLAIN_N = 1024  # ROIs per image where the loop backward meets its plain version
+# ... on the dead-area map and in the single-copy call
+LOOP_BWD_DEAD_N = 256
 # VGG16-DC5's plain5 at stride 8: plain4's unpadded stride-1 pool takes one
 # pixel off H and W; one 512-channel chunk
 VGG_FEAT = (B, 85, 131, 512)
@@ -296,6 +302,22 @@ def near(got, want, rtol, atol=1e-5):
     scale = want.float().abs().max()
     return bool(scale > 0 and (err <= rtol * want.float().abs() + atol * scale).all()), \
         err.max().item()
+
+
+def dead_rects(torch, feat, seed, count=6):
+    """A copy of the map ``feat [S, H, W, C]`` with ``count`` all-zero
+    rectangles per copy, in every channel, each 12-40 rows by 16-64 columns
+    at seeded places: dead areas larger than a bin, so whole sets tie at 0,
+    as on a post-ReLU map."""
+    rng = np.random.RandomState(seed)
+    s, h, w = feat.shape[:3]
+    out = feat.clone()
+    for k in range(s):
+        for _ in range(count):
+            rh, rw = rng.randint(12, 41), rng.randint(16, 65)
+            y, x = rng.randint(0, h - rh + 1), rng.randint(0, w - rw + 1)
+            out[k, y:y + rh, x:x + rw] = 0
+    return out
 
 
 def phase_pool_kernel(torch, dev, rp):
@@ -1399,13 +1421,17 @@ def phase_loop_bwd_kernel(torch, dev, rp):
     0.25 grid, so bins tie, many at 0), 5024 ROIs per image from the box mix
     routed to random branches, with overhanging, degenerate, 2-pixel (empty
     holes), invalid and gate-0 rows; bfloat16 and float32, both cotangents,
-    one 512-channel chunk. The kernel is timed at full N, and meets its
-    plain version on the first ``LOOP_BWD_PLAIN_N`` ROIs per image (the
-    plain version at full N would take minutes). Tolerance as the ROIPool
-    backward's: the kernel adds the feature cotangent with float32 atomics
-    in a varying order, so |kernel - plain| <= rtol |plain| + 1e-5 max
-    |plain| with rtol 1e-5 (float32) or one bfloat16 step, 2**-7; the gate
-    cotangent rtol 1e-4."""
+    one 512-channel chunk. The kernel is timed at full N (and with the ROI
+    row alone and with the frame, where the time goes), and meets its plain
+    version on the first ``LOOP_BWD_PLAIN_N`` ROIs per image (the plain
+    version at full N would take minutes). Then the same map with dead
+    areas (``dead_rects``: whole sets tie at 0), and the single-copy call
+    (``src`` the image, ``[4, 100, 152, 2048]``): each timed at full N and
+    held against the plain version on the first ``LOOP_BWD_DEAD_N`` ROIs per
+    image. Tolerance as the ROIPool backward's: the kernel adds the feature
+    cotangent with float32 atomics in a varying order, so |kernel - plain| <=
+    rtol |plain| + 1e-5 max |plain| with rtol 1e-5 (float32) or one bfloat16
+    step, 2**-7; the gate cotangent rtol 1e-4."""
     rng = np.random.RandomState(4)
     rois, gate = pool_inputs(rng, TB, TW, TH)
     rois[:, 5] = [300, 300, 310, 310]  # 2 px at stride 8: both holes empty
@@ -1415,62 +1441,82 @@ def phase_loop_bwd_kernel(torch, dev, rp):
     branch[:, :N_BRANCH] = np.arange(N_BRANCH)
     src = (branch * TB + np.arange(TB)[:, None]).astype(np.int32)
     rois_t, gate_t, src_t = (torch.from_numpy(a).to(dev) for a in (rois, gate, src))
+    image_t = torch.arange(TB, dtype=torch.int32, device=dev)[:, None].expand(TB, N_ROIS)
+    image_t = image_t.contiguous()
     g = torch.Generator(device=dev).manual_seed(4)
     base = torch.round(torch.relu(torch.randn(TRAIN_FEAT_MRRP, generator=g, device=dev)) * 4) / 4
-    n = LOOP_BWD_PLAIN_N
-    sub = [t[:, :n].contiguous() for t in (rois_t, gate_t, src_t)]
+    dead = dead_rects(torch, base, 13)
+    n, n_dead = LOOP_BWD_PLAIN_N, LOOP_BWD_DEAD_N
     max_err, times = 0.0, {}
-    for dtype, rtol in ((torch.bfloat16, 2.0 ** -7), (torch.float32, 1e-5)):
-        feat = base.to(dtype).contiguous()
-        cot = torch.randn((3, TB, N_ROIS, 7, 7, C_TAKE), generator=g, device=dev, dtype=dtype)
-        name = str(dtype)[6:]
-        if dtype == torch.bfloat16:  # the training path's call: the feature cotangent only
-            times["ms"] = cuda_ms(lambda: rp.roi_loop_pool_gated_bwd(
-                feat, rois_t, gate_t, src_t, None, cot, C_TAKE, C_TAKE, 7, 0.125,
-                need_gate=False), 5)
-            for rows in (1, 2):  # where the time goes: the ROI row, then with the frame
-                cot_r = cot[:rows].contiguous()
-                times[f"ms_rows{rows}"] = cuda_ms(lambda: rp.roi_loop_pool_gated_bwd(
-                    feat, rois_t, gate_t, src_t, None, cot_r, C_TAKE, C_TAKE, 7, 0.125,
-                    need_gate=False), 3)
-                del cot_r
-        cot_n = cot[:, :, :n].contiguous()
-        del cot
-        out = rp.roi_loop_pool_gated(feat, *sub, C_TAKE, C_TAKE, 3, 7, 0.125)
-        got_f, got_g = rp.roi_loop_pool_gated_bwd(feat, *sub, out, cot_n, C_TAKE, C_TAKE, 7, 0.125)
-        if dtype == torch.bfloat16:
-            times["ms_at_plain_n"] = cuda_ms(lambda: rp.roi_loop_pool_gated_bwd(
-                feat, *sub, None, cot_n, C_TAKE, C_TAKE, 7, 0.125, need_gate=False), 5)
+
+    def check(feat, cot, src_, k, rtol, what):
+        """The kernel against its plain version on the first ``k`` ROIs per
+        image; returns the plain call's ms."""
+        nonlocal max_err
+        r_k, g_k, s_k = (t[:, :k].contiguous() for t in (rois_t, gate_t, src_))
+        cot_k = cot[:, :, :k].contiguous()
+        out = rp.roi_loop_pool_gated(feat, r_k, g_k, s_k, C_TAKE, C_TAKE, 3, 7, 0.125)
+        got_f, got_g = rp.roi_loop_pool_gated_bwd(feat, r_k, g_k, s_k, out, cot_k, C_TAKE, C_TAKE,
+                                                  7, 0.125)
         (want_f, _), t = timed(lambda: rp.roi_loop_pool_gated_bwd_plain(
-            feat, *sub, None, cot_n, C_TAKE, C_TAKE, 7, 0.125, need_gate=False,
+            feat, r_k, g_k, s_k, None, cot_k, C_TAKE, C_TAKE, 7, 0.125, need_gate=False,
             max_elems=1 << 28))
-        _, want_g = rp.roi_loop_pool_gated_bwd_plain(feat, *sub, out, cot_n, C_TAKE, C_TAKE, 7,
-                                                     0.125, need_feat=False)
-        if dtype == torch.bfloat16:
-            times["plain_ms"] = t
+        _, want_g = rp.roi_loop_pool_gated_bwd_plain(feat, r_k, g_k, s_k, out, cot_k, C_TAKE,
+                                                     C_TAKE, 7, 0.125, need_feat=False)
         ok, err = near(got_f, want_f, rtol)
         max_err = max(max_err, err)
         if not ok:
-            raise AssertionError(f"roi_loop_pool_gated_bwd g_feat != plain ({name}): max "
+            raise AssertionError(f"roi_loop_pool_gated_bwd g_feat != plain ({what}): max "
                                  f"|err| {err}")
         ok, gerr = near(got_g, want_g, 1e-4, 1e-4)
         if not ok:
-            raise AssertionError(f"roi_loop_pool_gated_bwd g_gate != plain ({name}): max "
+            raise AssertionError(f"roi_loop_pool_gated_bwd g_gate != plain ({what}): max "
                                  f"|err| {gerr}")
-        log(f"roi_loop_pool_gated_bwd ~= plain, {name}: {n} ROIs per image on one chunk, both "
+        log(f"roi_loop_pool_gated_bwd ~= plain, {what}: {k} ROIs per image on one chunk, both "
             f"cotangents (rtol {rtol:g}); plain call {t / 1e3:.3f} s")
-        del feat, cot_n, out, got_f, got_g, want_f, want_g, err
+        return t
+
+    def call(feat, cot, src_):  # the training path's call: the feature cotangent only
+        return lambda: rp.roi_loop_pool_gated_bwd(feat, rois_t, gate_t, src_, None, cot, C_TAKE,
+                                                  C_TAKE, 7, 0.125, need_gate=False)
+
+    for dtype, rtol in ((torch.bfloat16, 2.0 ** -7), (torch.float32, 1e-5)):
+        feat = base.to(dtype).contiguous()
+        feat_dead = dead.to(dtype).contiguous()
+        one_copy = feat[:TB]  # src = the image: _pool_ad_bwd's call
+        cot = torch.randn((3, TB, N_ROIS, 7, 7, C_TAKE), generator=g, device=dev, dtype=dtype)
+        name = str(dtype)[6:]
+        if dtype == torch.bfloat16:
+            times["ms"] = cuda_ms(call(feat, cot, src_t), 5)
+            for rows in (1, 2):  # where the time goes: the ROI row, then with the frame
+                times[f"ms_rows{rows}"] = cuda_ms(call(feat, cot[:rows].contiguous(), src_t), 3)
+            times["dead_ms"] = cuda_ms(call(feat_dead, cot, src_t), 5)
+            times["single_copy_ms"] = cuda_ms(call(one_copy, cot, image_t), 5)
+            times["ms_at_plain_n"] = cuda_ms(lambda: rp.roi_loop_pool_gated_bwd(
+                feat, *(t[:, :n].contiguous() for t in (rois_t, gate_t, src_t)), None,
+                cot[:, :, :n].contiguous(), C_TAKE, C_TAKE, 7, 0.125, need_gate=False), 5)
+        t = check(feat, cot, src_t, n, rtol, f"{name}, routed")
+        if dtype == torch.bfloat16:
+            times["plain_ms"] = t
+        check(feat_dead, cot, src_t, n_dead, rtol, f"{name}, routed, dead areas")
+        check(one_copy, cot, image_t, n_dead, rtol, f"{name}, single copy")
+        del feat, feat_dead, one_copy, cot
         torch.cuda.empty_cache()
     bound_ms, bound_by, nbytes, ops = loop_bwd_bound(torch, rp, rois_t, gate_t, src_t)
+    one_bound, one_by, _, _ = loop_bwd_bound(torch, rp, rois_t, gate_t, image_t)
     log(f"roi_loop_pool_gated_bwd bf16 {list(TRAIN_FEAT_MRRP)} x {N_ROIS} ROIs, one 512-channel "
         f"chunk, feature cotangent: kernel {times['ms']:.3f} ms at {N_ROIS} ROIs per image "
         f"(the ROI row alone {times['ms_rows1']:.3f} ms, with the frame {times['ms_rows2']:.3f} "
-        f"ms), {times['ms_at_plain_n']:.3f} ms at {n}; plain {times['plain_ms']:.3f} ms at {n}; bound "
-        f"{bound_ms:.3f} ms at {N_ROIS} ({bound_by}: {nbytes / 1e6:.1f} MB, {ops / 1e9:.3f} G "
-        f"operations)")
+        f"ms; dead areas {times['dead_ms']:.3f} ms), {times['ms_at_plain_n']:.3f} ms at {n}; "
+        f"plain {times['plain_ms']:.3f} ms at {n}; bound {bound_ms:.3f} ms at {N_ROIS} "
+        f"({bound_by}: {nbytes / 1e6:.1f} MB, {ops / 1e9:.3f} G operations); single copy "
+        f"{[TB] + list(TRAIN_FEAT_MRRP[1:])}: kernel "
+        f"{times['single_copy_ms']:.3f} ms, bound {one_bound:.3f} ms ({one_by})")
     return {"max_abs_err": max_err, "ms": times["ms"], "plain_ms": times["plain_ms"],
             "bound_ms": bound_ms, "bound_by": bound_by, "n_rois": N_ROIS, "plain_n_rois": n,
-            "ms_at_plain_n": times["ms_at_plain_n"]}
+            "ms_at_plain_n": times["ms_at_plain_n"], "ms_rows1": times["ms_rows1"],
+            "ms_rows2": times["ms_rows2"], "dead_ms": times["dead_ms"],
+            "single_copy_ms": times["single_copy_ms"], "single_copy_bound_ms": one_bound}
 
 
 def loop_bwd_bound(torch, rp, rois_t, gate_t, src_t):
@@ -2031,7 +2077,8 @@ def main() -> int:
         "row_walk": ("wsovod_torch/kernels/csrc/row_walk.cu", "scripts/bench_i8walk.py:80"),
     }
     extra = ("n_rois", "plain_n_rois", "ms_at_plain_n", "window_ms", "window_plain_ms", "routed_ms",
-             "routed_plain_ms", "rows3_ms", "rows3_plain_ms", "rois_per_level", "cases")
+             "routed_plain_ms", "rows3_ms", "rows3_plain_ms", "rois_per_level", "cases", "ms_rows1",
+             "ms_rows2", "dead_ms", "single_copy_ms", "single_copy_bound_ms")
     log("int8 GEMMs (torch._int_mm, not a kernel of the port): "
         + json.dumps({k: round(v, 3) for k, v in int8_gemms.items()}))
     log(card)

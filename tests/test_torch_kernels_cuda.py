@@ -329,42 +329,105 @@ def _check_loop_backward_kernel(cuda):
     """``roi_loop_pool_gated_bwd`` against ``roi_loop_pool_gated_bwd_plain``
     at a medium size (3 branch copies, 600 ROIs per image, routed, edge and
     gate-0 rows, one copy post-ReLU on a 0.5 grid so bins tie at 0), both
-    cotangents, both dtypes, and through ``RoILoopPoolGatedFunction``.
-    Tolerances as ``_check_backward_kernel``'s."""
+    cotangents, both dtypes, and through ``RoILoopPoolGatedFunction``; the
+    cases its design treats apart: all-zero rectangles larger than a bin in
+    two copies (whole sets tie at 0), one hot pixel that 30 ROIs of one copy
+    cover, a ROI whose outer box covers the whole map; the single-copy call
+    (``src`` the image); every ``need_feat``/``need_gate`` combination; bins
+    wider than 32 columns in every grid and set. Tolerances as
+    ``_check_backward_kernel``'s."""
     b, n, n_br = 2, 600, 3
     g = torch.Generator().manual_seed(3)
     for dtype, rtol in ((torch.float32, 1e-5), (torch.bfloat16, 2.0 ** -7)):
         feat, rois, gate = _inputs(cuda, dtype, b=b, h=43, w=66, c=256, n=n)
         f = torch.round(feat.float() * 2) / 2
-        feat = torch.cat([f, torch.relu(f.flip(1)), f * -0.5], 0).to(dtype).contiguous()
+        feat = torch.cat([f, torch.relu(f.flip(1)), f * -0.5], 0)
+        feat[1, 5:25, 10:40] = 0.0  # dead areas larger than a bin
+        feat[2, 20:40, 30:60] = 0.0
+        feat[0, 20, 30] = 50.0  # a hot pixel ...
+        side = torch.linspace(24.0, 200.0, 30, device=cuda)[:, None]
+        rois[0, 10:40] = torch.tensor([244.0, 164.0, 244.0, 164.0], device=cuda) + side * torch.tensor(
+            [-1.0, -0.6, 0.8, 1.0], device=cuda)  # ... that 30 ROIs of copy 0 cover
+        gate[0, 10:40] = 1.25
+        rois[:, 4] = torch.tensor([0.0, 0.0, 66 * 8.0, 43 * 8.0], device=cuda)  # the whole map
+        gate[:, 4] = 0.75
+        feat = feat.to(dtype).contiguous()
         gate[:, 3] = 0.0  # a valid box with gate 0
         branch = torch.randint(0, n_br, (b, n), generator=g)
+        branch[0, 10:40] = 0
         src = (branch * b + torch.arange(b)[:, None]).to(torch.int32).to(cuda)
+        image = torch.arange(b, dtype=torch.int32, device=cuda)[:, None].expand(b, n).contiguous()
         c_base, c_take = 64, 128
-        out = port.roi_loop_pool_gated_plain(feat, rois, gate, src, c_base, c_take, 3, 7, 0.125)
-        cot = torch.randn(out.shape, generator=g).to(cuda, dtype)
-        before = port.LOOP_BWD_LAUNCHES
-        got_f, got_g = port.roi_loop_pool_gated_bwd(feat, rois, gate, src, out, cot, c_base, c_take,
-                                                    7, 0.125)
-        torch.cuda.synchronize()
-        assert port.LOOP_BWD_LAUNCHES == before + 1
-        want_f, want_g = port.roi_loop_pool_gated_bwd_plain(feat, rois, gate, src, out, cot,
-                                                            c_base, c_take, 7, 0.125)
-        scale = want_f.float().abs().max()
-        assert scale > 0
-        err = (got_f.float() - want_f.float()).abs()
-        assert (err <= rtol * want_f.float().abs() + 1e-5 * scale).all(), (dtype, err.max())
-        torch.testing.assert_close(got_g, want_g, rtol=1e-4, atol=1e-4 * want_g.abs().max())
+        for f_, s_ in ((feat, src), (feat[:b].contiguous(), image)):
+            out = port.roi_loop_pool_gated_plain(f_, rois, gate, s_, c_base, c_take, 3, 7, 0.125)
+            cot = torch.randn(out.shape, generator=g).to(cuda, dtype)
+            before = port.LOOP_BWD_LAUNCHES
+            got_f, got_g = port.roi_loop_pool_gated_bwd(f_, rois, gate, s_, out, cot, c_base,
+                                                        c_take, 7, 0.125)
+            torch.cuda.synchronize()
+            assert port.LOOP_BWD_LAUNCHES == before + 1
+            want_f, want_g = port.roi_loop_pool_gated_bwd_plain(f_, rois, gate, s_, out, cot,
+                                                                c_base, c_take, 7, 0.125)
+            what = (dtype, f_.shape[0])
+            _assert_near(got_f, want_f, rtol, what)
+            assert all(want_f[k].abs().max() > 0 for k in range(f_.shape[0])), what
+            torch.testing.assert_close(got_g, want_g, rtol=1e-4, atol=1e-4 * want_g.abs().max())
+            for need_feat, need_gate in ((True, False), (False, True), (False, False)):
+                before = port.LOOP_BWD_LAUNCHES
+                part = port.roi_loop_pool_gated_bwd(f_, rois, gate, s_, out, cot, c_base, c_take, 7,
+                                                    0.125, need_feat=need_feat, need_gate=need_gate)
+                torch.cuda.synchronize()
+                assert port.LOOP_BWD_LAUNCHES == before + 1
+                assert (part[0] is None) != need_feat and (part[1] is None) != need_gate
+                if need_feat:
+                    _assert_near(part[0], want_f, rtol, what)
+                if need_gate:
+                    assert torch.allclose(part[1], got_g, rtol=1e-4, atol=1e-6), what
 
         leaf = feat.clone().requires_grad_(True)
         before = (port.LOOP_LAUNCHES, port.LOOP_BWD_LAUNCHES)
         y = port.RoILoopPoolGatedFunction.apply(leaf, rois, gate, src, c_base, c_take, 3, 7, 0.125,
                                                 1.8)
+        cot = torch.randn(y.shape, generator=g).to(cuda, dtype)
         (y.float() * cot.float()).sum().backward()
         torch.cuda.synchronize()
         assert (port.LOOP_LAUNCHES, port.LOOP_BWD_LAUNCHES) == (before[0] + 1, before[1] + 1)
-        err = (leaf.grad.float() - want_f.float()).abs()
-        assert (err <= rtol * want_f.float().abs() + 1e-5 * scale).all(), (dtype, err.max())
+        want_f, _ = port.roi_loop_pool_gated_bwd_plain(feat, rois, gate, src, None, cot, c_base,
+                                                       c_take, 7, 0.125, need_gate=False)
+        _assert_near(leaf.grad, want_f, rtol, dtype)
+
+        # bins wider than 32 columns, more than a row's mask holds: a band of
+        # 6 rows by 240 columns, half the ROIs over 224 columns wide (the
+        # ROI's and the frame's bins), half 137-175 columns wide about the
+        # middle (their outer boxes, the context's bins, span the map); copy
+        # 0 has a row tied at every column, copy 1 a dead area; rows 3 and 1
+        k = 40
+        wide = torch.round(torch.relu(torch.randn(b, 6, 240, 64, generator=g)) * 2) / 2
+        wide[0, 3] = 8.0
+        wide[1, :, 60:200] = 0.0
+        wide = wide.to(cuda, dtype).contiguous()
+        half = torch.arange(k) < k // 2
+        span = 1100 + torch.rand(b, k, generator=g) * 300
+        x1 = torch.where(half, torch.rand(b, k, generator=g) * 56,
+                         900 + torch.rand(b, k, generator=g) * 120 - span / 2)
+        x2 = torch.where(half, 1864 + torch.rand(b, k, generator=g) * 56, x1 + span)
+        ys = torch.rand(b, k, 2, generator=g).sort(-1).values * 48
+        w_rois = torch.stack([x1, ys[..., 0], x2, ys[..., 1]], -1).to(cuda)
+        w_gate = (torch.rand(b, k, generator=g) + 0.5).to(cuda)
+        w_gate[:, 7] = 0.0
+        w_src = image[:, :k].contiguous()
+        geo = port.loop_geometry(w_rois, 0.125, 6, 240, 1.8)
+        assert (geo[:, :k // 2, 2] > 224).all() and (geo[:, k // 2:, 6] > 224).all()
+        out = port.roi_loop_pool_gated_plain(wide, w_rois, w_gate, w_src, 0, 64, 3, 7, 0.125)
+        cot = torch.randn(out.shape, generator=g).to(cuda, dtype)
+        for rows in (3, 1):
+            o_r, c_r = out[:rows].contiguous(), cot[:rows].contiguous()
+            got_f, got_g = port.roi_loop_pool_gated_bwd(wide, w_rois, w_gate, w_src, o_r, c_r, 0,
+                                                        64, 7, 0.125)
+            want_f, want_g = port.roi_loop_pool_gated_bwd_plain(wide, w_rois, w_gate, w_src, o_r,
+                                                                c_r, 0, 64, 7, 0.125)
+            _assert_near(got_f, want_f, rtol, (dtype, "wide", rows))
+            torch.testing.assert_close(got_g, want_g, rtol=1e-4, atol=1e-4 * want_g.abs().max())
 
 
 def _check_emission_kernels(cuda):

@@ -77,9 +77,10 @@ from wsovod_torch.models import build_model
 from wsovod_torch.models.backbones import VGG16
 from wsovod_torch.models.mil_heads import ObjectMiningOutputLayers
 from wsovod_torch.ops.roi_pool import (
-    roi_loop_pool_gated, roi_loop_pool_gated_bwd_plain, roi_loop_pool_gated_int8,
-    roi_loop_pool_gated_maxabs, roi_loop_pool_levels, roi_loop_pool_levels_plain, roi_pool_gated,
-    roi_pool_gated_bwd_plain, roi_pool_gated_int8, roi_pool_gated_maxabs,
+    loop_bwd_order, loop_geometry, roi_loop_pool_gated, roi_loop_pool_gated_bwd_plain,
+    roi_loop_pool_gated_int8, roi_loop_pool_gated_maxabs, roi_loop_pool_levels,
+    roi_loop_pool_levels_plain, roi_pool_gated, roi_pool_gated_bwd_plain, roi_pool_gated_int8,
+    roi_pool_gated_maxabs,
 )
 from wsovod_torch.solver.build import param_labels
 from wsovod_torch.structures.instances import Instances
@@ -276,6 +277,25 @@ def _check_loop_backward():
         assert not got_feat[..., :c_base].any() and not got_feat[..., c_base + c_take:].any()
     # bins whose max ties 0 were in play, so the halving above was exercised
     assert ((out == 0) & (np.abs(g) > 0)).any()
+
+    # the kernel's walk (loop_bwd_order): every ROI of nonzero gate once (a
+    # block walks all of a ROI's bins and sets), by feature copy and then the
+    # top-left of its region; the ROIs of gate 0 (row 10, the invalid row 9)
+    # after them, past n_live, where no block works
+    h_lim, w_lim = feat.shape[1:3]
+    geo = loop_geometry(torch.from_numpy(rois), scale, h_lim, w_lim, 1.8)
+    gate_b = torch.from_numpy(gate).to(torch.bfloat16)
+    order, n_live = loop_bwd_order(geo, gate_b, torch.from_numpy(src), h_lim, w_lim)
+    live = (gate_b != 0).flatten()
+    k = int(n_live)
+    assert order.dtype == torch.int32 and n_live.shape == (1,) and k == int(live.sum())
+    assert sorted(order.tolist()) == list(range(live.numel()))
+    assert live[order[:k].long()].all() and not live[order[k:].long()].any()
+    assert not live.view(b, -1)[:, 9:11].any()
+    walk = order[:k].long()
+    keys = [(int(src.flatten()[i]), min(max(int(geo.view(-1, 16)[i, 1]), 0), h_lim - 1),
+             min(max(int(geo.view(-1, 16)[i, 0]), 0), w_lim - 1)) for i in walk]
+    assert keys == sorted(keys) and len(set(src.flatten()[walk.numpy()].tolist())) > 1
 
     zeros = torch.zeros(1, 2, 2, 2)
     box, one = torch.tensor([[[0.0, 0.0, 1.0, 1.0]]]), torch.ones(1, 1)

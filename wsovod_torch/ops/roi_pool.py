@@ -691,6 +691,26 @@ def roi_loop_pool_gated_bwd_plain(
     return g_feat, g_gate
 
 
+def loop_bwd_order(geo: torch.Tensor, gate: torch.Tensor, src: torch.Tensor, h_lim: int,
+                   w_lim: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The order in which ``roi_loop_pool_gated_bwd``'s kernel walks the
+    ROIs: ``(order, n_live)``, ``order`` int32 ``[B * N]`` a permutation of
+    the flat ROI indices ``b * N + n`` that lists first, once each, the
+    ``n_live`` (int32 ``[1]``) ROIs of nonzero ``gate [B, N]`` (in the
+    feature dtype, as the forward used it), by feature copy ``src [B, N]``
+    and then by the top-left ``(y1, x1)`` of the ROI's region (``geo``'s
+    ``[0:4]``, clipped to the map), row-major, ties in index order; the ROIs
+    of gate 0 follow and get no work. Blocks that run together then read
+    and scatter into one copy's neighbourhood of the L2."""
+    live = (gate != 0).flatten()
+    y1 = geo[..., 1].clamp(0, h_lim - 1).flatten().long()
+    x1 = geo[..., 0].clamp(0, w_lim - 1).flatten().long()
+    key = (src.flatten().long() * h_lim + y1) * w_lim + x1
+    key = torch.where(live, key, torch.full_like(key, torch.iinfo(torch.int64).max))
+    order = torch.sort(key, stable=True).indices.to(torch.int32)
+    return order, live.sum(dtype=torch.int32).reshape(1)
+
+
 def roi_loop_pool_gated_bwd(
     feat: torch.Tensor,
     rois: torch.Tensor,
@@ -710,7 +730,8 @@ def roi_loop_pool_gated_bwd(
     P, c_take]``: ``(g_feat, g_gate)`` as ``roi_loop_pool_gated_bwd_plain``;
     ``out`` (the forward's output) is read only for ``g_gate``. On the card
     the feature cotangent is summed with float32 atomics, so it equals the
-    plain version to float tolerance, not bit for bit."""
+    plain version to float tolerance, not bit for bit; its kernel walks the
+    ROIs in ``loop_bwd_order``."""
     global LOOP_BWD_LAUNCHES
     if g.dim() != 6:
         raise ValueError(f"g must be [rows, B, N, P, P, c_take], got {tuple(g.shape)}")
@@ -733,19 +754,22 @@ def roi_loop_pool_gated_bwd(
     gate_f32 = gate.float().contiguous()
     g = g.to(feat.dtype).contiguous()
     out = out.to(feat.dtype).contiguous() if need_gate else None
-    scratch = (torch.zeros((s_copies, h, w, c_take), dtype=torch.float32, device=feat.device)
-               if need_feat else None)
+    scratch, order, n_live = None, None, None
+    if need_feat:
+        scratch = torch.zeros((s_copies, h, w, c_take), dtype=torch.float32, device=feat.device)
+        order, n_live = loop_bwd_order(geo, gate_dt, src32, h, w)
     g_gate = torch.empty((b, n), dtype=torch.float32, device=feat.device) if need_gate else None
     neg_floor = float(torch.tensor(NEG_INF, dtype=feat.dtype))
     fn = _kernel("roi_loop_pool_gated_bwd.cu", "wsovod_roi_loop_pool_gated_bwd", feat.dtype,
-                 [ctypes.c_void_p] * 9 + [ctypes.c_int] * 9 + [ctypes.c_float, ctypes.c_void_p])
+                 [ctypes.c_void_p] * 11 + [ctypes.c_int] * 9 + [ctypes.c_float, ctypes.c_void_p])
     # the temporaries are freed when this returns, while the kernel may still
     # run: the caching allocator reuses their memory only in stream order
     with torch.cuda.device(feat.device):
         stream = torch.cuda.current_stream(feat.device).cuda_stream
-        rc = fn(feat.data_ptr(), geo.data_ptr(), src32.data_ptr(), gate_dt.data_ptr(),
-                gate_f32.data_ptr(), g.data_ptr(), _ptr(out), _ptr(scratch), _ptr(g_gate), b, h,
-                w, c, n, int(c_base), int(c_take), int(output_size), int(rows), neg_floor, stream)
+        rc = fn(feat.data_ptr(), geo.data_ptr(), src32.data_ptr(), _ptr(order), _ptr(n_live),
+                gate_dt.data_ptr(), gate_f32.data_ptr(), g.data_ptr(), _ptr(out), _ptr(scratch),
+                _ptr(g_gate), b, h, w, c, n, int(c_base), int(c_take), int(output_size),
+                int(rows), neg_floor, stream)
     if rc != 0:
         raise RuntimeError(f"roi_loop_pool_gated_bwd kernel launch failed: cudaError {rc}")
     LOOP_BWD_LAUNCHES += 1
